@@ -1,0 +1,546 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
+
+    python3 chip_smoke.py
+
+Phases, each of which fails the run on error:
+
+1. build   nvcc builds the kernel library from ``src/repro_torch/csrc``.
+2. kernel  the ``cellcopy`` kernel against its plain PyTorch version on
+           the card, bit-exact on the copied bytes and the per-cell sums:
+           the cell shapes of ``tests/test_kernels.py``, ``copy_message``
+           at 8 MiB with 16 KiB and 64 KiB cells, byte-range copies at odd
+           lengths and offsets = 1, 3, 8 (mod 16) between device memory
+           and the pinned, mapped pool, and one corrupted cell that
+           ``verify`` must catch.
+3. main    ``run_processes(2, ..., pool_bytes=512 MiB, cell_size=16 KiB,
+           device="cuda")``: CUDA tensors of 8 B to 8 MiB cross the pool
+           on the eager, staged and posted paths in both directions and
+           are checked byte for byte; copied bytes per 1 MiB message are
+           held to ``artifacts/bench/budget_copies.json``; an 8 MiB
+           float32 ``allreduce`` equals the sum computed on the card; a
+           persistent ``allreduce_init`` hits a pre-posted entry on every
+           rendezvous send; every rank launched the kernel.
+4. report  the ``kernels`` JSON line (times at the main path's shapes),
+           one-way latency and bandwidth per path and size, and the
+           card's name and power limit.
+
+The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
+or outside a checkout of the repository, it exits non-zero and prints no
+result. Imports nothing of JAX or of the JAX package.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+BUDGET = ROOT / "artifacts" / "bench" / "budget_copies.json"
+
+MiB = 1 << 20
+CELL = 16384
+POOL_BYTES = 512 * MiB
+SIZES = (8, 512, 4096, 64 * 1024, MiB, 8 * MiB)
+PATHS = ("eager", "staged", "posted")
+HOST_SIZES = (8, 4096, 64 * 1024)
+BUDGET_KEYS = {"eager": "pt2pt_eager@1MiB",
+               "staged": "pt2pt_rndv_staged@1MiB",
+               "posted": "pt2pt_rndv_posted@1MiB"}
+ALLREDUCE_BYTES = 8 * MiB
+PERSIST_BYTES, PERSIST_ROUNDS = MiB, 10
+
+# peak rates of one H100 SXM (NVIDIA's data sheet): HBM3, and the host
+# link, PCIe 5.0 x16 (32 GT/s x 16 lanes, 128b/130b) in one direction
+HBM_BPS = 3.35e12
+PCIE_BPS = 32e9 * 16 * 128 / 130 / 8
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def say(*a) -> None:
+    print(*a, flush=True)
+
+
+def iters_for(size: int) -> int:
+    return 20 if size <= 64 * 1024 else 10 if size <= MiB else 3
+
+
+def _payload(size: int, seed: int, device):
+    import torch
+    g = torch.Generator(device=device).manual_seed(seed)
+    return torch.randint(0, 256, (size,), dtype=torch.uint8,
+                         device=device, generator=g)
+
+
+# ---------------------------------------------------------------------------
+# phase 3: the rank program (module level: run_processes spawns)
+# ---------------------------------------------------------------------------
+
+def _one_way(env, path: str, size: int, sender: int, iters: int,
+             seed: int, host: bool = False) -> dict:
+    """``iters`` messages of ``size`` bytes from ``sender`` to its peer on
+    ``path``, paced by a zero-byte credit from the receiver as
+    ``benchmarks/fig5_8_osu.run_protocols`` paces them (the receive is
+    posted before the credit, so the posted path always finds its
+    entry). ``host``: the payload is host bytes, as a CPU caller's is.
+    Returns this rank's counters and checks the bytes."""
+    import torch
+
+    from repro_torch.kernels.cellcopy import ops
+    c, peer = env.comm, 1 - env.rank
+    src = _payload(size, seed, c.device)
+    if host:
+        src = src.cpu().numpy().tobytes()
+    pbuf = reg = None
+    if env.rank != sender:
+        if host:
+            dst = bytearray(size)
+        elif path == "posted":
+            pbuf = c.alloc_buffer(size)
+            dst = pbuf
+        else:
+            target = dst = torch.zeros(size, dtype=torch.uint8,
+                                       device=c.device)
+            if path == "registered":
+                # posted into the registration's pool shadow, drained
+                # into the CUDA tensor on completion
+                reg = dst = c.register(target)
+    st = env.arena.view.stats
+    c.barrier()
+    s0 = st.snapshot()
+    k0 = (c.eager_sends, c.rndv_sends, c.posted_sends, ops.LAUNCHES)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        if env.rank == sender:
+            c.recv(peer, tag=2)                       # credit
+            c.send(peer, src, tag=1)
+        else:
+            req = c.irecv_into(peer, dst, tag=1)
+            c.send(peer, b"", tag=2)
+            req.wait(timeout=120)
+    dt = time.perf_counter() - t0
+    delta = st.delta(s0)
+    k1 = (c.eager_sends, c.rndv_sends, c.posted_sends, ops.LAUNCHES)
+    out = {"s": dt / iters, "copied": delta["copied_bytes"],
+           "path_bytes": delta["path_copied_bytes"],
+           "eager": k1[0] - k0[0], "rndv": k1[1] - k0[1],
+           "posted": k1[2] - k0[2], "launches": k1[3] - k0[3]}
+    if env.rank != sender:
+        got = (pbuf.tensor() if pbuf is not None
+               else dst if host else target)
+        out["bytes_ok"] = (bytes(got) == src if host
+                           else bool(torch.equal(got, src)))
+    c.barrier()
+    if pbuf is not None:
+        pbuf.free()
+    if reg is not None:
+        reg.free()
+    return out
+
+
+def main_path(env) -> dict:
+    import torch
+
+    from repro_torch.kernels.cellcopy import ops
+    ops.LAUNCHES = 0
+    c, rank = env.comm, env.rank
+    default_threshold = c.eager_threshold
+    res: dict = {"rank": rank, "device": str(c.device), "p2p": {}}
+    for path in PATHS:
+        # force the path as fig5_8_osu.run_protocols does: every payload
+        # eager, or every non-empty payload rendezvous; the receive kind
+        # (CUDA tensor or pool-resident buffer) picks staged or posted
+        c.eager_threshold = 1 << 40 if path == "eager" else 0
+        for size in SIZES:
+            fwd = _one_way(env, path, size, 0, iters_for(size), size)
+            back = _one_way(env, path, size, 1, 1, size + 1)
+            res["p2p"][f"{path}:{size}"] = {"fwd": fwd, "back": back}
+    # the other CUDA payload sites: a posted receive into a registered
+    # CUDA tensor, and a self-send (cloned on the card)
+    c.eager_threshold = 0
+    res["p2p"]["registered"] = {
+        "fwd": _one_way(env, "registered", MiB, 0, 3, 7),
+        "back": _one_way(env, "registered", MiB, 1, 1, 8)}
+    mine = _payload(4096, 9 + rank, c.device)
+    c.send(rank, mine, tag=5)
+    echo, _ = c.recv(rank, tag=5)
+    res["self_send_ok"] = bool(echo.device == mine.device
+                               and torch.equal(echo, mine))
+    # the same eager stream with host payloads: the protocol's own cost,
+    # beside which the CUDA payloads above show what the device adds
+    c.eager_threshold = 1 << 40
+    for size in HOST_SIZES:
+        fwd = _one_way(env, "eager", size, 0, iters_for(size), size, True)
+        res["p2p"][f"eager-host:{size}"] = {"fwd": fwd}
+    c.eager_threshold = default_threshold
+    # allreduce of an 8 MiB float32 CUDA tensor against the sum on the card
+    n = ALLREDUCE_BYTES // 4
+    xs = [torch.randn(n, device=c.device, generator=torch.Generator(
+        device=c.device).manual_seed(1000 + r)) for r in range(2)]
+    want = xs[0] + xs[1]
+    got = c.allreduce(xs[rank].clone())
+    res["allreduce_ok"] = bool(got.device == want.device
+                               and torch.equal(got, want))
+    # persistent allreduce: every rendezvous send hits a pre-posted entry
+    x = torch.zeros(PERSIST_BYTES // 8, dtype=torch.float64,
+                    device=c.device)
+    req = c.allreduce_init(x, algo="rd")
+    h0, r0 = c.posted_sends, c.rndv_sends
+    ok = True
+    for i in range(PERSIST_ROUNDS):
+        x.fill_(float(i + rank + 1))
+        out = req.start().wait()
+        ok = ok and bool(torch.all(out == 2 * i + 3))
+    req.free()
+    res["persistent"] = {"ok": ok, "hits": c.posted_sends - h0,
+                         "rndv": c.rndv_sends - r0,
+                         "misses": env.arena.view.stats.mb_capacity_misses}
+    res["launches"] = ops.LAUNCHES
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 2 and the timings: the kernel against its plain version
+# ---------------------------------------------------------------------------
+
+class Check:
+    """Bit-exact comparisons of kernel and plain outputs."""
+
+    def __init__(self):
+        self.cases = 0
+        self.mismatches = 0
+        self.max_abs_err = 0
+
+    def same(self, what: str, got, want) -> None:
+        import torch
+        self.cases += 1
+        diff = (got.to(torch.int64) - want.to(torch.int64)).abs()
+        err = int(diff.max()) if diff.numel() else 0
+        self.max_abs_err = max(self.max_abs_err, err)
+        if err or got.shape != want.shape:
+            self.mismatches += 1
+            fail(f"kernel and plain version differ: {what} "
+                 f"(max abs err {err})")
+
+
+def _u32(t):
+    import torch
+    return t.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+
+
+def kernel_phase(pool, check: Check) -> None:
+    import torch
+
+    from repro_torch.kernels.cellcopy import ops, ref
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    for cells, words, block in [(8, 128, 2), (16, 256, 4), (32, 512, 8),
+                                (4, 1024, 4)]:
+        src = torch.randint(-2**31, 2**31 - 1, (cells, words),
+                            dtype=torch.int32, device=dev, generator=g)
+        d, s = ops.cellcopy(src, block_cells=block)
+        rd, rs = ref.cellcopy_ref(src)
+        check.same(f"cellcopy {cells}x{words} dst", d, rd)
+        check.same(f"cellcopy {cells}x{words} sums", _u32(s), _u32(rs))
+        if not ops.verify(d, s):
+            fail("verify rejected a clean copy")
+    for n in (123_457, 8 * MiB):
+        msg = torch.randint(0, 256, (n,), dtype=torch.uint8, device=dev,
+                            generator=g)
+        for cb in (16384, 65536):
+            o, s = ops.copy_message(msg, cell_bytes=cb, block_cells=2)
+            rcb, rcells = ops._cell_layout(n, cb, 2)
+            check.same(f"copy_message {n}/{cb} bytes", o, msg)
+            check.same(f"copy_message {n}/{cb} sums", _u32(s),
+                       _u32(ref.cell_sums_ref(msg, rcb, rcells)))
+    # byte ranges, any alignment: device -> pool -> device
+    big = torch.randint(0, 256, (MiB + 64,), dtype=torch.uint8, device=dev,
+                        generator=g)
+    for n in (1, 3, 15, 16, 17, 255, 4097, 16383, 16385, 100_003, MiB + 5):
+        for so in (0, 1, 3, 8):
+            for do in (0, 1, 3, 8):
+                src = big[so:so + n]
+                want_sums = _u32(ref.cell_sums_ref(src, CELL,
+                                                   -(-n // CELL)))
+                plain = torch.zeros(n + 32, dtype=torch.uint8, device=dev)
+                ref.copy_bytes_ref(plain[do:do + n], src, CELL)
+                dst = torch.zeros(n + 32, dtype=torch.uint8, device=dev)
+                s = ops.copy_into(dst[do:do + n], src, CELL)
+                check.same(f"d2d {n}@{so}->{do}", dst, plain)
+                check.same(f"d2d sums {n}", _u32(s), want_sums)
+                off = 4096 + do
+                sums = torch.empty(-(-n // CELL), dtype=torch.uint32,
+                                   device=dev)
+                ops.copy_bytes(pool.device_ptr(off, n), src.data_ptr(), n,
+                               CELL, sums)
+                torch.cuda.synchronize()
+                check.same(f"d2pool {n}@{so}->{do}",
+                           pool.device_view(off, n), src)
+                check.same(f"d2pool sums {n}", _u32(sums), want_sums)
+                back = torch.zeros(n + 32, dtype=torch.uint8, device=dev)
+                ops.copy_bytes(back.data_ptr() + so, pool.device_ptr(off, n),
+                               n, CELL, sums)
+                torch.cuda.synchronize()
+                check.same(f"pool2d {n}@{do}->{so}", back[so:so + n], src)
+                check.same(f"pool2d sums {n}", _u32(sums), want_sums)
+    src = torch.randint(0, 100, (8, 128), dtype=torch.int32, device=dev,
+                        generator=g)
+    d, s = ops.cellcopy(src, block_cells=2)
+    d[3, 5] += 1
+    if ops.verify(d, s):
+        fail("verify missed a corrupted cell")
+    torch.cuda.synchronize()
+
+
+def _time_ms(fn, reps: int = 50, warm: int = 5) -> tuple[float, float]:
+    """(device ms, issued ms) per call of ``fn``, from CUDA events.
+
+    issued: calls issued back to back from Python, as the data plane
+    issues them; a call shorter than its host-side launch path measures
+    that path. device: the same calls queued behind a spin kernel long
+    enough to hold all of them, so the card runs them back to back and
+    the events see the card's time alone."""
+    import torch
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(reps):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    issued = e0.elapsed_time(e1) / reps
+    # calibrate the spin, then make it outlast three times the issue time
+    e0.record()
+    torch.cuda._sleep(1_000_000)
+    e1.record()
+    torch.cuda.synchronize()
+    ms_per_mcycle = max(e0.elapsed_time(e1), 1e-3)
+    cycles = int((3 * reps * issued / ms_per_mcycle + 1) * 1e6)
+    torch.cuda._sleep(cycles)
+    e0.record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    e1.record()
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    if enqueue_ms > cycles / 1e6 * ms_per_mcycle:
+        fail(f"timing: the spin ran out before the launches were queued "
+             f"({enqueue_ms:.3f} ms)")
+    return e0.elapsed_time(e1) / reps, issued
+
+
+def timings(pool) -> list[dict]:
+    """Kernel, plain version and ``Tensor.copy_`` at the main path's
+    shapes: a 1 MiB rendezvous payload into the pool (staged and posted
+    sends) and out of it (staged drain), one eager cell payload
+    (16368 B at cell offset + 8, the first chunk after the 16 B message
+    header) and 1 MiB device to device."""
+    import torch
+
+    from repro_torch.kernels.cellcopy import ops, ref
+    dev = torch.device("cuda")
+    src = torch.randint(0, 256, (MiB,), dtype=torch.uint8, device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(3))
+    d2d = torch.empty(MiB, dtype=torch.uint8, device=dev)
+    shapes = [
+        ("device->pool", MiB, pool.device_view(0, MiB), src, MiB, MiB),
+        ("pool->device", MiB, d2d, pool.device_view(0, MiB), MiB, MiB),
+        ("device->pool eager cell", CELL - 16,
+         pool.device_view(2 * MiB + 24, CELL - 16), src[:CELL - 16],
+         CELL - 16, CELL - 16),
+        ("device->device", MiB, d2d, src, 0, 2 * MiB),
+    ]
+    rows = []
+    for name, n, dst, s, pcie_bytes, hbm_bytes in shapes:
+        n_cells = -(-n // CELL)
+        sums = torch.empty(n_cells, dtype=torch.uint32, device=dev)
+        kern, kern_issued = _time_ms(lambda: ops.copy_bytes(
+            dst.data_ptr(), s.data_ptr(), n, CELL, sums))
+        plain, plain_issued = _time_ms(
+            lambda: ref.copy_bytes_ref(dst, s, CELL))
+        lib, lib_issued = _time_ms(lambda: dst.copy_(s))
+        # each input read once, each output written once: the payload,
+        # plus 4 B of sum per cell into device memory
+        hbm = hbm_bytes + 4 * n_cells
+        bound = max(pcie_bytes / PCIE_BPS, hbm / HBM_BPS) * 1e3
+        rows.append({"shape": name, "bytes": n, "ms": kern,
+                     "plain_ms": plain, "library_ms": lib,
+                     "bound_ms": bound,
+                     "bound_link": "pcie" if pcie_bytes else "hbm",
+                     "GBps": n / kern / 1e6, "issued_ms": kern_issued,
+                     "plain_issued_ms": plain_issued,
+                     "library_issued_ms": lib_issued})
+    return rows
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    if out.returncode != 0 or not out.stdout.strip():
+        fail(f"nvidia-smi failed: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]
+
+
+def check_main(ranks: list[dict], main_s: float) -> tuple:
+    """Hold the ranks' reports of the main path to the run's limits;
+    returns (launches per rank, latency table, launches per 1 MiB
+    message by path)."""
+    launches = [r["launches"] for r in ranks]
+    say(f"[main] 2 ranks on {ranks[0]['device']}: {main_s:.1f} s, "
+        f"cellcopy launches per rank {launches}")
+    if min(launches) <= 0:
+        fail(f"a rank never launched the kernel: {launches}")
+    budget = json.loads(BUDGET.read_text())
+    tol = budget["tolerance"]
+    lat: dict = {}
+    per_msg_launches: dict = {}
+    for path in PATHS:
+        for size in SIZES:
+            key = f"{path}:{size}"
+            fwd = [r["p2p"][key]["fwd"] for r in ranks]
+            back = [r["p2p"][key]["back"] for r in ranks]
+            if not (fwd[1]["bytes_ok"] and back[0]["bytes_ok"]):
+                fail(f"{key}: bytes differ after the round trip")
+            snd = fwd[0]
+            iters = iters_for(size)
+            want = {"eager": (iters, 0, 0), "staged": (0, iters, 0),
+                    "posted": (0, iters, iters)}[path]
+            if (snd["eager"], snd["rndv"], snd["posted"]) != want:
+                fail(f"{key}: took the wrong path {snd}")
+            lat.setdefault(path, {})[size] = {
+                "us": snd["s"] * 1e6, "MBps": size / snd["s"] / 1e6}
+            if size == MiB:
+                copied = (fwd[0]["copied"] + fwd[1]["copied"]) / iters
+                ref_b = budget["copied_bytes_per_message"][
+                    BUDGET_KEYS[path]]
+                say(f"[main] {path} @1MiB: {copied:.1f} copied B/msg "
+                    f"(budget {ref_b}, tolerance {tol})")
+                if abs(copied - ref_b) > tol * ref_b:
+                    fail(f"{path}: copied bytes {copied} outside "
+                         f"{tol} of {ref_b}")
+                per_msg_launches[path] = (
+                    fwd[0]["launches"] + fwd[1]["launches"]) / iters
+    say(f"[main] all {len(PATHS) * len(SIZES)} path x size cases "
+        f"byte-exact both ways")
+    reg = [r["p2p"]["registered"] for r in ranks]
+    if not (reg[1]["fwd"]["bytes_ok"] and reg[0]["back"]["bytes_ok"]):
+        fail("registered CUDA receive: bytes differ")
+    if reg[0]["fwd"]["posted"] != 3:
+        fail(f"registered CUDA receive missed its posting {reg[0]}")
+    if not all(r["self_send_ok"] for r in ranks):
+        fail("self-send of a CUDA tensor came back different")
+    say("[main] registered CUDA receives posted 3/3 and byte-exact; "
+        "CUDA self-send stays on the card")
+    for size in HOST_SIZES:
+        fwd = [r["p2p"][f"eager-host:{size}"]["fwd"] for r in ranks]
+        if not fwd[1]["bytes_ok"]:
+            fail(f"eager host payload of {size} B: bytes differ")
+        if fwd[0]["launches"] or fwd[1]["launches"]:
+            fail("a host payload went through the kernel")
+        lat.setdefault("eager-host", {})[size] = {
+            "us": fwd[0]["s"] * 1e6,
+            "MBps": size / fwd[0]["s"] / 1e6}
+    if not all(r["allreduce_ok"] for r in ranks):
+        fail("8 MiB allreduce differs from the sum on the card")
+    say("[main] allreduce of 8 MiB float32 equals the sum on the card")
+    hits = sum(r["persistent"]["hits"] for r in ranks)
+    rndv = sum(r["persistent"]["rndv"] for r in ranks)
+    rate = hits / max(rndv, 1)
+    if not all(r["persistent"]["ok"] for r in ranks) or rndv == 0 \
+            or rate != 1.0:
+        fail(f"persistent allreduce: {hits}/{rndv} posted hits")
+    say(f"[main] persistent allreduce: {hits}/{rndv} rendezvous sends "
+        f"hit a pre-posted entry (rate {rate:.2f})")
+    say(f"[main] cellcopy launches per 1 MiB message (both ranks): "
+        f"{json.dumps(per_msg_launches)}")
+    return launches, lat, per_msg_launches
+
+
+
+def main() -> None:
+    import torch
+    if not torch.cuda.is_available():
+        fail("no CUDA device (torch.cuda.is_available() is false)")
+    if not (SRC / "repro_torch" / "csrc" / "cellcopy.cu").is_file() \
+            or not BUDGET.is_file():
+        fail(f"not a checkout of the repository: {SRC} has no port")
+    sys.path.insert(0, str(SRC))
+    from repro_torch.core import SharedMemoryPool, run_processes
+    from repro_torch.kernels import build
+    from repro_torch.kernels.cellcopy import ops
+    t_start = time.perf_counter()
+    say(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"python {sys.version.split()[0]} "
+        f"device {torch.cuda.get_device_name(0)}")
+
+    # 1. build
+    t0 = time.perf_counter()
+    build.load()
+    say(f"[build] {time.perf_counter() - t0:.2f} s "
+        f"(nvcc {build.BUILD_LOG.get('seconds', 0.0):.2f} s)")
+    say(build.BUILD_LOG.get("log", ""))
+
+    # 2. kernel against its plain version
+    check = Check()
+    pool = SharedMemoryPool(64 * MiB, device="cuda")
+    try:
+        t0 = time.perf_counter()
+        kernel_phase(pool, check)
+        say(f"[kernel] {check.cases} comparisons bit-exact, "
+            f"{check.mismatches} mismatches, corrupted cell caught "
+            f"({time.perf_counter() - t0:.1f} s)")
+
+        # 3. the main path: counts to 0 just before, read just after
+        ops.LAUNCHES = 0
+        t0 = time.perf_counter()
+        ranks = run_processes(2, main_path, pool_bytes=POOL_BYTES,
+                              cell_size=CELL, device="cuda",
+                              comm_kw={"matchbox_slots": 8}, timeout=900)
+        main_s = time.perf_counter() - t0
+        if ops.LAUNCHES:
+            fail("the parent launched kernels during the main path")
+        launches, lat, per_msg_launches = check_main(ranks, main_s)
+
+        # 4. report
+        rows = timings(pool)
+        for r in rows:
+            say(f"[time] {json.dumps(r)}")
+    finally:
+        pool.close()
+        pool.unlink()
+    head = rows[0]
+    kernels = {"kernels": [{
+        "name": "cellcopy", "route": "cuda",
+        "source": "src/repro_torch/csrc/cellcopy.cu",
+        "replaces": "src/repro/kernels/cellcopy/kernel.py:40",
+        "launches": sum(launches), "mismatches": check.mismatches,
+        "max_abs_err": check.max_abs_err,
+        "shape": head["shape"] + " 1 MiB, 16 KiB cells",
+        "ms": head["ms"], "kernel_ms": head["ms"],
+        "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+        "bound_by": "bytes", "library_ms": head["library_ms"],
+        "launches_per_1MiB_message": per_msg_launches,
+        "shapes": rows}]}
+    say(json.dumps({"one_way_latency_bandwidth": lat}))
+    say(f"[done] {time.perf_counter() - t_start:.1f} s")
+    say(json.dumps(kernels))
+    say(nvidia_smi())
+    say(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,284 @@
+"""The same rank programs under both packages' ``run_threads``: pt2pt on
+every path, the collectives and a persistent allreduce give exactly the
+reference's results (every reduce is the same elementwise IEEE add in
+the same schedule order), and ``ProtocolStats`` agree wherever the
+reference treats them as deterministic — the 1 MiB copy budgets among
+them. One test runs the port's ``run_processes`` (``spawn``)."""
+import functools
+import json
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import repro.core as ref_core  # noqa: E402
+import repro_torch.core as port_core  # noqa: E402
+
+MiB = 1 << 20
+POOL = 8 << 20
+BUDGET = json.loads((Path(__file__).resolve().parents[1] / "artifacts"
+                     / "bench" / "budget_copies.json").read_text())
+
+
+class Ref:
+    core = ref_core
+    kw: dict = {}
+
+    @staticmethod
+    def arr(x: np.ndarray):
+        return x.copy()
+
+    @staticmethod
+    def np(y) -> np.ndarray:
+        return np.frombuffer(y, np.uint8) if isinstance(y, bytes) \
+            else np.asarray(y)
+
+
+class Port:
+    core = port_core
+    kw = {"device": "cpu"}
+
+    @staticmethod
+    def arr(x: np.ndarray):
+        return torch.from_numpy(x.copy())
+
+    @staticmethod
+    def np(y) -> np.ndarray:
+        assert isinstance(y, torch.Tensor) and y.device.type == "cpu"
+        return y.numpy()
+
+
+def run(pkg, n, prog, pool_bytes=POOL, **kw):
+    return pkg.core.run_threads(n, functools.partial(prog, pkg=pkg),
+                                pool_bytes=pool_bytes, timeout=120,
+                                **pkg.kw, **kw)
+
+
+def both(n, prog, **kw):
+    return run(Ref, n, prog, **kw), run(Port, n, prog, **kw)
+
+
+def _data(n: int, seed: int) -> np.ndarray:
+    return np.random.default_rng(seed).integers(0, 256, size=n,
+                                                dtype=np.uint8)
+
+
+# ---------------------------------------------------------------------------
+# pt2pt: the three paths, forced as benchmarks/fig5_8_osu.run_protocols
+# forces them, with each rank's ProtocolStats delta over the stream
+# ---------------------------------------------------------------------------
+
+def _stream(env, pkg, *, path, size, iters=3):
+    c = env.comm
+    c.eager_threshold = 1 << 40 if path == "eager" else 0
+    src = pkg.arr(_data(size, 7))
+    if path == "posted" and env.rank == 1:
+        dst = c.alloc_buffer(size)
+    else:
+        dst = pkg.arr(np.zeros(size, np.uint8))
+    c.barrier()
+    st = env.arena.view.stats
+    s0, hits0 = st.snapshot(), c.posted_sends
+    for _ in range(iters):
+        if env.rank == 0:
+            c.recv(1, tag=2)                 # the receiver's credit
+            c.send(1, src, tag=1)
+        else:
+            req = c.irecv_into(0, dst, tag=1)
+            c.send(0, b"", tag=2)
+            req.wait()
+    delta = st.delta(s0)
+    got = (bytes(dst.read()) if path == "posted" and env.rank == 1
+           else pkg.np(dst).tobytes())
+    c.barrier()
+    return delta, c.posted_sends - hits0, got
+
+
+@pytest.mark.parametrize("path,budget", [
+    ("eager", "pt2pt_eager@1MiB"),
+    ("rndv_staged", "pt2pt_rndv_staged@1MiB"),
+    ("rndv_posted", "pt2pt_rndv_posted@1MiB")])
+def test_pt2pt_paths_match_reference_and_budget(path, budget):
+    iters = 3
+    prog = functools.partial(_stream, path=path.replace("rndv_", ""),
+                             size=MiB, iters=iters)
+    ref, port = both(2, prog, cell_size=16384)
+    assert port[1][2] == ref[1][2] == _data(MiB, 7).tobytes()
+    for r in (0, 1):
+        assert port[r][0]["path_copied_bytes"] == \
+            ref[r][0]["path_copied_bytes"]
+        assert port[r][1] == ref[r][1]       # posted hits
+    copied = sum(port[r][0]["copied_bytes"] for r in (0, 1)) / iters
+    want = BUDGET["copied_bytes_per_message"][budget]
+    assert abs(copied - want) <= BUDGET["tolerance"] * want
+    if path != "rndv_staged":                # staged churns the arena
+        assert [p[0]["copied_bytes"] for p in port] == \
+            [p[0]["copied_bytes"] for p in ref]
+    if path == "rndv_posted":
+        assert port[0][1] == iters
+
+
+def _ring(env, pkg):
+    """Each rank sends to its right neighbour on every path; recv()
+    results, recv_into of tensors/arrays, tag reordering, self-send."""
+    c, n, r = env.comm, env.size, env.rank
+    out = []
+    for size in (0, 5, 16384, 70_000):
+        req = c.isend((r + 1) % n, pkg.arr(_data(size, r)), tag=3)
+        got, tag = c.recv((r - 1) % n, tag=3)
+        req.wait()
+        out.append((pkg.np(got).tobytes(), tag))
+    c.send((r + 1) % n, pkg.arr(_data(10, 1)), tag=8)
+    c.send((r + 1) % n, pkg.arr(_data(10, 2)), tag=9)
+    buf = pkg.arr(np.zeros(10, np.uint8))
+    out.append(c.recv_into((r - 1) % n, buf, tag=9))
+    out.append(pkg.np(buf).tobytes())
+    out.append(pkg.np(c.recv((r - 1) % n, tag=8)[0]).tobytes())
+    c.send(r, pkg.arr(_data(33, 3)), tag=4)
+    out.append(pkg.np(c.recv(r, tag=4)[0]).tobytes())
+    return out
+
+
+@pytest.mark.parametrize("n,threshold", [(3, None), (4, 0), (2, 1 << 40)])
+def test_pt2pt_ring_matches_reference(n, threshold):
+    ref, port = both(n, _ring, eager_threshold=threshold)
+    assert port == ref
+
+
+def _registered(env, pkg, *, rounds=3):
+    """Posted rendezvous into a registered user buffer (shadow drain on
+    completion) and into a numpy array; the receiver posts first."""
+    c, peer = env.comm, 1 - env.rank
+    c.eager_threshold = 0
+    n = 50_000
+    dst = pkg.arr(np.zeros(n, np.uint8))
+    reg = c.register(dst)
+    arr = np.zeros(n, np.uint8)
+    st = env.arena.view.stats
+    s0, h0 = st.snapshot(), c.posted_sends
+    got = []
+    for i in range(rounds):
+        if env.rank == 0:
+            c.recv(1, tag=2)
+            c.send(1, pkg.arr(_data(n, i)), tag=1)
+            c.send(1, pkg.arr(_data(n, 10 + i)), tag=3)
+        else:
+            req = c.irecv_into(0, reg, tag=1)
+            c.send(0, b"", tag=2)
+            req.wait()
+            c.recv_into(0, arr, tag=3)
+            got.append((pkg.np(dst).tobytes(), arr.tobytes()))
+    reg.free()
+    delta = st.delta(s0)
+    return got, c.posted_sends - h0, delta["path_copied_bytes"]
+
+
+def test_registration_and_numpy_destinations_match_reference():
+    ref, port = both(2, _registered)
+    assert port == ref
+    got, _, _ = port[1]
+    assert got == [(_data(50_000, i).tobytes(),
+                    _data(50_000, 10 + i).tobytes()) for i in range(3)]
+    assert port[0][1] == 3                   # every registered receive hit
+
+
+# ---------------------------------------------------------------------------
+# collectives
+# ---------------------------------------------------------------------------
+
+def _x(rank: int, count: int = 3000, dtype=np.float64) -> np.ndarray:
+    return np.random.default_rng(100 + rank).standard_normal(count) \
+        .astype(dtype)
+
+
+def _allreduce(env, pkg, *, algo, dtype):
+    out = env.comm.allreduce(pkg.arr(_x(env.rank, dtype=dtype)), algo=algo)
+    return pkg.np(out).tobytes()
+
+
+@pytest.mark.parametrize("n,algo,dtype", [
+    (2, "rd", np.float64), (4, "rd", np.float32), (3, "ring", np.float64),
+    (4, "ring", np.float32), (4, "hier", np.float64),
+    (2, "auto", np.float64)])
+def test_allreduce_matches_reference(n, algo, dtype):
+    prog = functools.partial(_allreduce, algo=algo, dtype=dtype)
+    ref, port = both(n, prog)
+    assert port == ref
+    assert len(set(port)) == 1               # every rank holds the result
+
+
+def _collectives(env, pkg):
+    c, r = env.comm, env.rank
+    out = {}
+    b = c.bcast(pkg.arr(_x(9).reshape(30, 100)) if r == 1 else None,
+                root=1)
+    out["bcast"] = (tuple(b.shape), pkg.np(b).tobytes())
+    shard = pkg.arr(np.arange(5, dtype=np.int64) + 10 * r)
+    out["ag_ring"] = pkg.np(c.allgather(shard, algo="ring")).tobytes()
+    out["ag_bruck"] = pkg.np(c.allgather(shard, algo="bruck")).tobytes()
+    out["rs"] = pkg.np(c.reduce_scatter(pkg.arr(_x(r, 1001)))).tobytes()
+    red = c.reduce(pkg.arr(_x(r, 50)), root=0)
+    out["reduce"] = None if red is None else pkg.np(red).tobytes()
+    ib = pkg.arr(_x(5, 64) if r == 0 else np.zeros(64))
+    c.ibcast(ib, root=0).wait()
+    out["ibcast"] = pkg.np(ib).tobytes()
+    return out
+
+
+@pytest.mark.parametrize("n", [3, 4])
+def test_collectives_match_reference(n):
+    ref, port = both(n, _collectives)
+    assert port == ref
+
+
+def _persistent(env, pkg, *, rounds=4):
+    c = env.comm
+    x = pkg.arr(np.zeros(MiB // 8))
+    req = c.allreduce_init(x, algo="rd")
+    st = env.arena.view.stats
+    h0, r0, s0 = c.posted_sends, c.rndv_sends, st.snapshot()
+    outs = []
+    for i in range(rounds):
+        x[:] = float(i + env.rank + 1)
+        outs.append(float(req.start().wait()[0]))
+    delta = st.delta(s0)
+    req.free()
+    return (outs, c.posted_sends - h0, c.rndv_sends - r0,
+            delta["copied_bytes"] / rounds, delta["path_copied_bytes"],
+            st.mb_capacity_misses)
+
+
+def test_persistent_allreduce_matches_reference():
+    # two iterations' 1 MiB slot sets per rank outgrow the 8 MiB pool
+    ref, port = both(2, _persistent, comm_kw={"matchbox_slots": 8},
+                     pool_bytes=32 << 20)
+    assert port == ref
+    outs, hits, rndv, copied, _, misses = port[0]
+    assert outs == [2.0 * i + 3 for i in range(4)]
+    assert hits == rndv > 0 and misses == 0     # 100% posted hits
+    want = BUDGET["copied_bytes_per_message"][
+        "collective_allreduce_persistent@1MiB_2p"]
+    assert abs(copied - want) <= BUDGET["tolerance"] * want
+
+
+# ---------------------------------------------------------------------------
+# run_processes: real processes started with spawn
+# ---------------------------------------------------------------------------
+
+def _spawn_prog(env):
+    c, peer = env.comm, 1 - env.rank
+    x = torch.full((4096,), float(env.rank + 1))
+    total = c.allreduce(x)
+    c.send(peer, torch.arange(100_000, dtype=torch.int32), tag=1)
+    got = torch.empty(100_000, dtype=torch.int32)
+    c.recv_into(peer, got, tag=1)
+    return (float(total[0]), bool(torch.equal(got, torch.arange(
+        100_000, dtype=torch.int32))), str(c.device))
+
+
+def test_run_processes_spawn_cpu():
+    res = port_core.run_processes(2, _spawn_prog, pool_bytes=POOL,
+                                  device="cpu", timeout=120)
+    assert res == [(3.0, True, "cpu")] * 2
