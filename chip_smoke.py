@@ -5,14 +5,19 @@
 
 Phases, each of which fails the run on error:
 
-1. build   nvcc builds the kernel library from ``src/repro_torch/csrc``.
-2. kernel  the ``cellcopy`` kernel against its plain PyTorch version on
-           the card, bit-exact on the copied bytes and the per-cell sums:
-           the cell shapes of ``tests/test_kernels.py``, ``copy_message``
-           at 8 MiB with 16 KiB and 64 KiB cells, byte-range copies at odd
-           lengths and offsets = 1, 3, 8 (mod 16) between device memory
-           and the pinned, mapped pool, and one corrupted cell that
-           ``verify`` must catch.
+1. build   nvcc builds the kernel library from ``src/repro_torch/csrc``
+           (one nvcc per source, all started together).
+2. kernel  each kernel against its plain PyTorch version on the card:
+           ``cellcopy`` bit-exact on the copied bytes and the per-cell
+           sums (the cell shapes of ``tests/test_kernels.py``,
+           ``copy_message`` at 8 MiB with 16 KiB and 64 KiB cells,
+           byte-range copies at odd lengths and offsets = 1, 3, 8 (mod 16)
+           between device memory and the pinned, mapped pool, one
+           corrupted cell that ``verify`` must catch); ``flash_attention``
+           on the cases of ``tests/test_kernels.py`` and at the model
+           path's shapes, f32 within 1e-5 and bf16 within 3e-2 (absolute
+           plus relative, as ``assert_allclose``); ``wkv6`` likewise,
+           within rel < 1e-4.
 3. main    ``run_processes(2, ..., pool_bytes=512 MiB, cell_size=16 KiB,
            device="cuda")``: CUDA tensors of 8 B to 8 MiB cross the pool
            on the eager, staged and posted paths in both directions and
@@ -21,9 +26,18 @@ Phases, each of which fails the run on error:
            float32 ``allreduce`` equals the sum computed on the card; a
            persistent ``allreduce_init`` hits a pre-posted entry on every
            rendezvous send; every rank launched the kernel.
-4. report  the ``kernels`` JSON line (times at the main path's shapes),
-           one-way latency and bandwidth per path and size, and the
-           card's name and power limit.
+4. model   llama3-8b, then rwkv6-3b, at full width and depth with random
+           f32 weights from a seed, bf16 compute: ``serve_batch`` (batch
+           4, 128-token prompts, 32 new tokens), ``lm.prefill`` on the
+           same prompts and on one 4096-token prompt, each prefill
+           launching its kernel once per layer; one decode step's wall
+           and device time (``torch.profiler``); then, in f32 compute
+           with TF32 off, prefill's last-position logits against the
+           teacher-forced decode's (which runs no kernel) within
+           1e-3 * max|logit|.
+5. report  the ``kernels`` JSON line (times at the main paths' shapes),
+           one-way latency and bandwidth per path and size, the serving
+           numbers per model, and the card's name and power limit.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
 or outside a checkout of the repository, it exits non-zero and prints no
@@ -54,9 +68,19 @@ ALLREDUCE_BYTES = 8 * MiB
 PERSIST_BYTES, PERSIST_ROUNDS = MiB, 10
 
 # peak rates of one H100 SXM (NVIDIA's data sheet): HBM3, and the host
-# link, PCIe 5.0 x16 (32 GT/s x 16 lanes, 128b/130b) in one direction
+# link, PCIe 5.0 x16 (32 GT/s x 16 lanes, 128b/130b) in one direction;
+# dense bf16 on the tensor cores and f32 outside them
 HBM_BPS = 3.35e12
 PCIE_BPS = 32e9 * 16 * 128 / 130 / 8
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+
+# the model path: published configs, serve_batch's shape, one long prompt
+MODELS = ("llama3-8b", "rwkv6-3b")
+SERVE = {"batch": 4, "prompt_len": 128, "gen": 32}
+LONG_PROMPT = 4096
+# prefill (kernel) against teacher-forced decode (no kernel) in f32: the
+# two sum in other orders through 32 layers of random weights
+LOGIT_TOL = 1e-3
 
 
 def fail(msg: str) -> None:
@@ -299,14 +323,18 @@ def kernel_phase(pool, check: Check) -> None:
     torch.cuda.synchronize()
 
 
-def _time_ms(fn, reps: int = 50, warm: int = 5) -> tuple[float, float]:
+def _time_ms(fn, reps: int = 50, warm: int = 5,
+             spin: bool = True) -> tuple[float, float]:
     """(device ms, issued ms) per call of ``fn``, from CUDA events.
 
     issued: calls issued back to back from Python, as the data plane
     issues them; a call shorter than its host-side launch path measures
     that path. device: the same calls queued behind a spin kernel long
     enough to hold all of them, so the card runs them back to back and
-    the events see the card's time alone."""
+    the events see the card's time alone. ``spin=False`` for a call that
+    issues more launches than the launch queue holds (a Python loop over
+    tokens): the card cannot run ahead of its host there, and device ms
+    is the issued ms."""
     import torch
     for _ in range(warm):
         fn()
@@ -319,6 +347,8 @@ def _time_ms(fn, reps: int = 50, warm: int = 5) -> tuple[float, float]:
     e1.record()
     torch.cuda.synchronize()
     issued = e0.elapsed_time(e1) / reps
+    if not spin:
+        return issued, issued
     # calibrate the spin, then make it outlast three times the issue time
     e0.record()
     torch.cuda._sleep(1_000_000)
@@ -382,6 +412,335 @@ def timings(pool) -> list[dict]:
                      "plain_issued_ms": plain_issued,
                      "library_issued_ms": lib_issued})
     return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 2, model kernels: flash_attention and wkv6 against their plain
+# versions; and their timings at the model path's shapes
+# ---------------------------------------------------------------------------
+
+class FloatCheck:
+    """Comparisons of kernel and plain outputs within a tolerance."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.cases = 0
+        self.mismatches = 0
+        self.max_abs_err = 0.0
+        self.max_rel_err = 0.0
+
+    def close(self, what: str, got, want, tol: float) -> None:
+        """|got - want| <= tol + tol * |want| everywhere (assert_allclose)."""
+        self.cases += 1
+        g, w = got.float(), want.float()
+        err = float((g - w).abs().max())
+        self.max_abs_err = max(self.max_abs_err, err)
+        if got.shape != want.shape or not bool(
+                ((g - w).abs() <= tol + tol * w.abs()).all()):
+            self.mismatches += 1
+            fail(f"{self.name} and its plain version differ: {what} "
+                 f"(max abs err {err:.3g}, tol {tol})")
+
+    def rel(self, what: str, got, want, bound: float) -> None:
+        """max|got - want| / max|want| < bound (tests/test_kernels.py)."""
+        self.cases += 1
+        err = float((got.float() - want.float()).abs().max())
+        rel = err / (float(want.float().abs().max()) + 1e-9)
+        self.max_abs_err = max(self.max_abs_err, err)
+        self.max_rel_err = max(self.max_rel_err, rel)
+        if got.shape != want.shape or not rel < bound:
+            self.mismatches += 1
+            fail(f"{self.name} and its plain version differ: {what} "
+                 f"(rel err {rel:.3g}, bound {bound})")
+
+
+# (b, h, kv, s, d, causal, dtype): tests/test_kernels.py's sweep, ragged
+# lengths, and the model path's shapes (serve prompts; one long prompt)
+FLASH_CASES = [
+    (2, 4, 4, 256, 64, True, "float32"),
+    (1, 8, 2, 256, 128, True, "bfloat16"),
+    (2, 4, 1, 128, 64, False, "float32"),
+    (1, 2, 2, 512, 32, True, "float32"),
+    (1, 4, 2, 100, 64, True, "float32"),
+    (2, 2, 1, 77, 32, False, "bfloat16"),
+    (4, 32, 8, 128, 128, True, "bfloat16"),
+    (4, 32, 8, 128, 128, True, "float32"),
+    (1, 32, 8, 4096, 128, True, "bfloat16"),
+    (1, 32, 8, 4096, 128, True, "float32")]
+# (b, h, s, n, dtype of r, k, v): the sweep and the path's shapes
+WKV6_CASES = [
+    (2, 2, 64, 16, "float32"), (1, 4, 128, 32, "float32"),
+    (2, 1, 96, 64, "float32"), (1, 1, 32, 8, "float32"),
+    (4, 40, 128, 64, "bfloat16"), (4, 40, 128, 64, "float32"),
+    (1, 40, 4096, 64, "bfloat16")]
+
+
+def _randn(shape, g, dtype="float32"):
+    import torch
+    return torch.randn(shape, device="cuda", generator=g).to(
+        getattr(torch, dtype))
+
+
+def _flash_inputs(b, h, kv, s, d, dtype, g):
+    return (_randn((b, h, s, d), g, dtype), _randn((b, kv, s, d), g, dtype),
+            _randn((b, kv, s, d), g, dtype))
+
+
+def _wkv6_inputs(b, h, s, n, dtype, g):
+    import torch
+    r, k, v = (_randn((b, h, s, n), g, dtype) for _ in range(3))
+    w = torch.exp(-torch.exp(_randn((b, h, s, n), g) * 0.5 - 2.0))
+    return r, k, v, w, _randn((h, n), g) * 0.5
+
+
+def model_kernel_phase(fcheck: FloatCheck, wcheck: FloatCheck) -> None:
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.rwkv6 import ops as wk
+    from repro_torch.kernels.rwkv6 import ref as wk_ref
+    g = torch.Generator(device="cuda").manual_seed(11)
+    for b, h, kv, s, d, causal, dt in FLASH_CASES:
+        q, k, v = _flash_inputs(b, h, kv, s, d, dt, g)
+        tol = 3e-2 if dt == "bfloat16" else 1e-5
+        want = fa_ref.attention_ref(q, k, v, causal=causal)
+        what = f"({b},{h},{kv},{s},{d}) causal={causal} {dt}"
+        fcheck.close(what, fa.flash_attention(q, k, v, causal=causal),
+                     want, tol)
+        got = fa.flash_attention_bshd(
+            *(t.transpose(1, 2).contiguous() for t in (q, k, v)),
+            causal=causal)
+        fcheck.close(what + " bshd", got.transpose(1, 2), want, tol)
+        del q, k, v, want, got
+    for b, h, s, n, dt in WKV6_CASES:
+        args = _wkv6_inputs(b, h, s, n, dt, g)
+        want = wk_ref.wkv6_ref(*args)
+        what = f"({b},{h},{s},{n}) {dt}"
+        wcheck.rel(what, wk.wkv6(*args), want, 1e-4)
+        got = wk.wkv6_bshn(*(t.transpose(1, 2).contiguous()
+                             for t in args[:4]), args[4])
+        wcheck.rel(what + " bshn", got.transpose(1, 2), want, 1e-4)
+    torch.cuda.synchronize()
+
+
+def _flash_work(b, h, kv, s, d, dtype, causal=True):
+    """(flops, bytes) the function needs: 4 d flops per (query, key) pair
+    it attends (s(s+1)/2 pairs per head when causal); q, k, v read once
+    and o written once."""
+    pairs = s * (s + 1) // 2 if causal else s * s
+    es = 2 if dtype == "bfloat16" else 4
+    return 4 * b * h * d * pairs, es * d * s * b * (2 * h + 2 * kv)
+
+
+def _wkv6_work(b, h, s, n, dtype):
+    """(flops, bytes): per token and head 2n^2 for r.S, 4n for
+    (r.(u*k)) v, 3n^2 for S*w + k v^T; r, k, v, w read and o written
+    once, u read once."""
+    es = 2 if dtype == "bfloat16" else 4
+    return (b * h * s * (5 * n * n + 4 * n),
+            b * h * s * n * (3 * es + 4 + 4) + h * n * 4)
+
+
+def _bound_ms(flops: float, nbytes: float, dtype: str) -> tuple[float, str]:
+    ops_s = flops / PEAK_FLOPS[dtype]
+    mem_s = nbytes / HBM_BPS
+    return max(ops_s, mem_s) * 1e3, ("operations" if ops_s >= mem_s
+                                      else "bytes")
+
+
+def model_kernel_timings() -> tuple[list[dict], list[dict]]:
+    """Kernel, plain version and library call at the model path's shapes
+    (bf16, as the served models call them)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.rwkv6 import ops as wk
+    from repro_torch.kernels.rwkv6 import ref as wk_ref
+    g = torch.Generator(device="cuda").manual_seed(12)
+    flash = []
+    for b, s in ((4, SERVE["prompt_len"]), (1, LONG_PROMPT)):
+        shape = (b, 32, 8, s, 128)
+        q, k, v = _flash_inputs(*shape, "bfloat16", g)
+        reps = 20 if s <= 1024 else 5
+        kern, kern_issued = _time_ms(
+            lambda: fa.flash_attention(q, k, v, causal=True), reps, 2)
+        plain, _ = _time_ms(lambda: fa_ref.attention_ref(q, k, v), reps, 2)
+        lib, _ = _time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), reps, 2)
+        flops, nbytes = _flash_work(*shape, "bfloat16")
+        bound, by = _bound_ms(flops, nbytes, "bfloat16")
+        flash.append({"shape": f"B={b} H=32 KV=8 S={s} D=128 bf16 causal",
+                      "ms": kern, "issued_ms": kern_issued,
+                      "plain_ms": plain, "library_ms": lib,
+                      "bound_ms": bound, "bound_by": by,
+                      "TFLOPs": flops / kern / 1e9})
+        del q, k, v
+    wkv = []
+    for b, s in ((4, SERVE["prompt_len"]), (1, LONG_PROMPT)):
+        shape = (b, 40, s, 64)
+        args = _wkv6_inputs(*shape, "bfloat16", g)
+        kern, kern_issued = _time_ms(lambda: wk.wkv6(*args), 10, 2)
+        plain, _ = _time_ms(lambda: wk_ref.wkv6_ref(*args), 2, 1,
+                            spin=False)
+        flops, nbytes = _wkv6_work(*shape, "bfloat16")
+        bound, by = _bound_ms(flops, nbytes, "float32")
+        wkv.append({"shape": f"B={b} H=40 S={s} n=64 bf16 r,k,v",
+                    "ms": kern, "issued_ms": kern_issued,
+                    "plain_ms": plain, "library_ms": None,
+                    "bound_ms": bound, "bound_by": by,
+                    "CTAs": b * 40, "threads_per_CTA": 64})
+    return flash, wkv
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the model path
+# ---------------------------------------------------------------------------
+
+def _sync_s(t0: float) -> float:
+    import torch
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def _decode_profile(params, cfg, prompts, steps: int = 3) -> dict:
+    """One decode step's wall time (unprofiled, synchronised), and its
+    device time from ``torch.profiler`` (the kernels' own durations):
+    their ratio is the card's busy share during decode."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import lm
+    b = prompts.shape[0]
+    state = lm.decode_state_init(cfg, b, steps + 1, device="cuda")
+
+    def run():
+        for i in range(steps):
+            lm.decode_step(params, cfg, state,
+                           {"tokens": prompts[:, i:i + 1]},
+                           torch.full((b,), i, dtype=torch.int32,
+                                      device="cuda"))
+        torch.cuda.synchronize()
+
+    run()                                          # warm
+    t0 = time.perf_counter()
+    run()
+    wall = (time.perf_counter() - t0) / steps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    device = sum(e.self_device_time_total for e in kernels) / 1e6 / steps
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:4]
+    return {"step_ms": wall * 1e3, "device_ms": device * 1e3,
+            "busy_share": device / wall,
+            "top_kernels_ms": {e.key[:60]: e.self_device_time_total / 1e3
+                               / steps for e in top}}
+
+
+def model_phase(arch: str) -> dict:
+    """Serve and prefill ``arch`` at full width and depth; returns what
+    the run measured and how often each kernel launched."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.cellcopy import ops as cc
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.rwkv6 import ops as wk
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.models import lm
+    kern = fa if arch == "llama3-8b" else wk
+    cfg = get_config(arch)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init(cfg, 0, device="cuda")
+    init_s = _sync_s(t0)
+    param_gb = sum(t.numel() * t.element_size()
+                   for t in lm.tree_leaves(params)) / 1e9
+    res: dict = {"arch": arch, "init_s": init_s, "param_GB": param_gb}
+
+    # the main path: counts to 0 just before, read just after
+    cc.LAUNCHES = fa.LAUNCHES = wk.LAUNCHES = 0
+    served = serve_batch(cfg, params=params, seed=0, quiet=True,
+                         device="cuda", **SERVE)
+    if served["tokens"].shape != (SERVE["batch"], SERVE["gen"]) or not (
+            (served["tokens"] >= 0) & (served["tokens"] < cfg.vocab_size)
+    ).all():
+        fail(f"{arch}: serve_batch gave bad tokens {served['tokens']}")
+    res["serve"] = {k: served[k] for k in
+                    ("decode_tok_per_s", "prefill_s", "decode_s")}
+    res["serve"]["peak_GB"] = torch.cuda.max_memory_allocated() / 1e9
+    if kern.LAUNCHES:
+        fail(f"{arch}: serve_batch's teacher-forced prefill launched the "
+             "prefill kernel")
+    rng = np.random.default_rng(0)          # serve_batch's prompts
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, size=(SERVE["batch"], SERVE["prompt_len"]),
+        dtype=np.int32)).cuda()
+    long_prompt = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, size=(1, LONG_PROMPT), dtype=np.int32)).cuda()
+
+    def prefill(c, toks, what):
+        before = kern.LAUNCHES
+        t0 = time.perf_counter()
+        logits = lm.prefill(params, c, {"tokens": toks})
+        secs = _sync_s(t0)
+        n = kern.LAUNCHES - before
+        if n != cfg.n_layers:
+            fail(f"{arch} {what}: {n} kernel launches, want one per layer "
+                 f"({cfg.n_layers})")
+        if logits.shape != (toks.shape[0], cfg.vocab_size) or not bool(
+                torch.isfinite(logits).all()):
+            fail(f"{arch} {what}: logits {tuple(logits.shape)} not finite "
+                 "or of the wrong shape")
+        return logits, secs
+
+    res["decode_profile"] = _decode_profile(params, cfg, prompts)
+    torch.cuda.reset_peak_memory_stats()
+    _, cold = prefill(cfg, prompts, "prefill 4x128")
+    _, warm = prefill(cfg, prompts, "prefill 4x128")
+    _, long_s = prefill(cfg, long_prompt, f"prefill 1x{LONG_PROMPT}")
+    res["prefill"] = {"4x128_s": warm, "4x128_first_s": cold,
+                      f"1x{LONG_PROMPT}_s": long_s,
+                      "peak_GB": torch.cuda.max_memory_allocated() / 1e9}
+
+    # f32 compute, TF32 off: prefill (kernel) against teacher-forced
+    # decode (no kernel) at the last prompt position
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    c32 = dataclasses.replace(cfg, compute_dtype="float32")
+    par, _ = prefill(c32, prompts, "f32 prefill")
+    state = lm.decode_state_init(c32, SERVE["batch"], SERVE["prompt_len"],
+                                 device="cuda")
+    for i in range(SERVE["prompt_len"]):
+        seq, state = lm.decode_step(
+            params, c32, state, {"tokens": prompts[:, i:i + 1]},
+            torch.full((SERVE["batch"],), i, dtype=torch.int32,
+                       device="cuda"))
+    diff = float((par - seq).abs().max())
+    scale = float(seq.abs().max())
+    res["f32_prefill_vs_decode"] = {"max_abs_diff": diff,
+                                    "max_abs_logit": scale,
+                                    "ratio": diff / scale,
+                                    "tol": LOGIT_TOL}
+    if not diff <= LOGIT_TOL * scale:
+        fail(f"{arch}: f32 prefill and teacher-forced decode differ by "
+             f"{diff:.3g} (max |logit| {scale:.3g})")
+    res["launches"] = {"cellcopy": cc.LAUNCHES, "flash_attention":
+                       fa.LAUNCHES, "wkv6": wk.LAUNCHES}
+    if kern.LAUNCHES != 4 * cfg.n_layers or cc.LAUNCHES:
+        fail(f"{arch}: launches on the model path {res['launches']}")
+    del params, state
+    torch.cuda.empty_cache()
+    return res
+
 
 
 def nvidia_smi() -> str:
@@ -492,17 +851,25 @@ def main() -> None:
         f"(nvcc {build.BUILD_LOG.get('seconds', 0.0):.2f} s)")
     say(build.BUILD_LOG.get("log", ""))
 
-    # 2. kernel against its plain version
+    # 2. kernels against their plain versions
     check = Check()
+    fcheck, wcheck = FloatCheck("flash_attention"), FloatCheck("wkv6")
     pool = SharedMemoryPool(64 * MiB, device="cuda")
     try:
         t0 = time.perf_counter()
         kernel_phase(pool, check)
-        say(f"[kernel] {check.cases} comparisons bit-exact, "
+        say(f"[kernel] cellcopy: {check.cases} comparisons bit-exact, "
             f"{check.mismatches} mismatches, corrupted cell caught "
             f"({time.perf_counter() - t0:.1f} s)")
+        t0 = time.perf_counter()
+        model_kernel_phase(fcheck, wcheck)
+        for c in (fcheck, wcheck):
+            say(f"[kernel] {c.name}: {c.cases} comparisons within "
+                f"tolerance, {c.mismatches} mismatches, max abs err "
+                f"{c.max_abs_err:.3g}, max rel err {c.max_rel_err:.3g}")
+        say(f"[kernel] model kernels {time.perf_counter() - t0:.1f} s")
 
-        # 3. the main path: counts to 0 just before, read just after
+        # 3. the message plane: counts to 0 just before, read just after
         ops.LAUNCHES = 0
         t0 = time.perf_counter()
         ranks = run_processes(2, main_path, pool_bytes=POOL_BYTES,
@@ -512,16 +879,27 @@ def main() -> None:
         if ops.LAUNCHES:
             fail("the parent launched kernels during the main path")
         launches, lat, per_msg_launches = check_main(ranks, main_s)
-
-        # 4. report
         rows = timings(pool)
-        for r in rows:
-            say(f"[time] {json.dumps(r)}")
     finally:
         pool.close()
         pool.unlink()
+
+    # 4. the model path, one model at a time
+    models = {}
+    for arch in MODELS:
+        t0 = time.perf_counter()
+        models[arch] = model_phase(arch)
+        say(f"[model] {json.dumps(models[arch])} "
+            f"({time.perf_counter() - t0:.1f} s)")
+
+    # 5. report
+    for r in rows:
+        say(f"[time] {json.dumps(r)}")
+    flash_rows, wkv_rows = model_kernel_timings()
+    for r in flash_rows + wkv_rows:
+        say(f"[time] {json.dumps(r)}")
     head = rows[0]
-    kernels = {"kernels": [{
+    entries = [{
         "name": "cellcopy", "route": "cuda",
         "source": "src/repro_torch/csrc/cellcopy.cu",
         "replaces": "src/repro/kernels/cellcopy/kernel.py:40",
@@ -532,10 +910,30 @@ def main() -> None:
         "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
         "bound_by": "bytes", "library_ms": head["library_ms"],
         "launches_per_1MiB_message": per_msg_launches,
-        "shapes": rows}]}
+        "shapes": rows}]
+    for name, src, replaces, arch, c, rows_ in (
+            ("flash_attention", "flash_attention.cu",
+             "src/repro/kernels/flash_attention/kernel.py:75", "llama3-8b",
+             fcheck, flash_rows),
+            ("wkv6", "wkv6.cu", "src/repro/kernels/rwkv6/kernel.py:78",
+             "rwkv6-3b", wcheck, wkv_rows)):
+        head = rows_[-1]                       # the long prompt
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{src}", "replaces": replaces,
+            "launches": models[arch]["launches"][name],
+            "mismatches": c.mismatches, "max_abs_err": c.max_abs_err,
+            "max_rel_err": c.max_rel_err, "shape": head["shape"],
+            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"], "shapes": rows_})
     say(json.dumps({"one_way_latency_bandwidth": lat}))
+    say(json.dumps({"serving": {a: {k: m[k] for k in (
+        "serve", "decode_profile", "prefill", "f32_prefill_vs_decode",
+        "init_s", "param_GB")}
+        for a, m in models.items()}}))
     say(f"[done] {time.perf_counter() - t_start:.1f} s")
-    say(json.dumps(kernels))
+    say(json.dumps({"kernels": entries}))
     say(nvidia_smi())
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

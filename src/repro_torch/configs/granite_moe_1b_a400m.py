@@ -1,0 +1,18 @@
+"""granite-moe-1b-a400m — 24L d_model=1024 16H (GQA kv=8) d_ff=512,
+vocab=49155, MoE 32 experts top-8. [hf:ibm-granite/granite-3.0-1b-a400m-base; hf]"""
+from repro_torch.configs.base import BlockSpec, ModelConfig, MoEConfig
+
+CONFIG = ModelConfig(
+    arch_id="granite-moe-1b-a400m",
+    family="moe",
+    n_layers=24,
+    d_model=1024,
+    n_heads=16,
+    n_kv_heads=8,
+    d_ff=512,
+    vocab_size=49155,       # padded to 49168 for 16-way vocab parallelism
+    pattern=(BlockSpec(mixer="attn", ffn="moe"),),
+    moe=MoEConfig(n_experts=32, top_k=8),
+    rope_theta=10_000.0,
+    optimizer="adamw",
+)

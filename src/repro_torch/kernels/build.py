@@ -2,11 +2,13 @@
 
 The sources under ``repro_torch/csrc`` have a plain C interface and are
 compiled for ``sm_90a`` with nvcc into ``build/kernels/`` at the root of
-the checkout, at first use, and loaded with ``ctypes``. Nothing is built
-or loaded when a module is imported: the CPU tests import every module
-on a machine without nvcc. The library name carries a hash of the
-sources and flags, so an edited source is rebuilt and concurrent
-builders (several rank processes) never load a half-written file.
+the checkout, at first use, and loaded with ``ctypes``: one nvcc per
+source, all started together, then one link into a shared library.
+Nothing is built or loaded when a module is imported: the CPU tests
+import every module on a machine without nvcc. The library name
+carries a hash of the sources and flags, so an edited source is rebuilt
+and concurrent builders (several rank processes) never load a
+half-written file.
 """
 from __future__ import annotations
 
@@ -20,10 +22,12 @@ import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[1]
-SOURCES = (_PKG / "csrc" / "cellcopy.cu",)
+SOURCES = tuple(_PKG / "csrc" / f for f in (
+    "cellcopy.cu", "flash_attention.cu", "wkv6.cu"))
 BUILD_DIR = _PKG.parents[1] / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _lib = None
@@ -52,26 +56,46 @@ def lib_path() -> Path:
     return BUILD_DIR / f"libreprotorch-{_digest()}.so"
 
 
+def _run_all(cmds: list[list[str]]) -> str:
+    """Run the commands concurrently; return their output, or raise with
+    it if any failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    bad = [(c, p.returncode, o) for c, p, o in zip(cmds, procs, outs)
+           if p.returncode != 0]
+    if bad:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(
+            f"{' '.join(c)} ({rc}):\n{o}" for c, rc, o in bad))
+    return "\n".join(outs)
+
+
 def build() -> Path:
     """Compile the sources unless this exact build exists; return the
     library's path. Safe under concurrent callers: each compiles to its
-    own temporary name and renames atomically."""
+    own temporary names and renames atomically."""
     out = lib_path()
     if out.exists():
         BUILD_LOG.update(seconds=0.0, cached=True, log="")
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
+    nvcc = _nvcc()
+    tag = f"{out.name}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in SOURCES]
+    tmp = BUILD_DIR / f"{tag}.tmp"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    secs = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)
-    BUILD_LOG.update(seconds=secs, cached=False,
-                     log=(proc.stdout + proc.stderr).strip())
+    try:
+        log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+                        for src, o in zip(SOURCES, objs)])
+        log += _run_all([[nvcc, *ARCH, "-shared", "-o", str(tmp),
+                          *map(str, objs)]])
+        os.replace(tmp, out)
+    finally:
+        for f in (*objs, tmp):
+            f.unlink(missing_ok=True)
+    BUILD_LOG.update(seconds=time.perf_counter() - t0, cached=False,
+                     log=log.strip())
     return out
 
 
@@ -90,5 +114,11 @@ def load() -> ctypes.CDLL:
             lib.pool_host_unregister.restype = ctypes.c_int
             lib.pool_device_pointer.argtypes = [ctypes.POINTER(vp), vp]
             lib.pool_device_pointer.restype = ctypes.c_int
+            i = ctypes.c_int
+            lib.flash_attention_fwd.argtypes = [vp] * 4 + [i] * 7 + \
+                [ll] * 9 + [vp]
+            lib.flash_attention_fwd.restype = ctypes.c_int
+            lib.wkv6_fwd.argtypes = [vp] * 6 + [i] * 5 + [ll] * 6 + [vp]
+            lib.wkv6_fwd.restype = ctypes.c_int
             _lib = lib
         return _lib

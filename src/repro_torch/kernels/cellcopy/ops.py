@@ -23,6 +23,7 @@ import ctypes
 
 import torch
 
+from repro_torch.kernels import route
 from repro_torch.kernels.cellcopy import ref
 
 LANE = 128
@@ -104,16 +105,6 @@ def _flat_u8(t: torch.Tensor, what: str) -> torch.Tensor:
     return t
 
 
-def _device_of(*ts: torch.Tensor) -> str:
-    kinds = {t.device.type for t in ts}
-    if kinds == {"cpu"}:
-        return "cpu"
-    if kinds == {"cuda"}:
-        return "cuda"
-    raise ValueError(f"cellcopy: tensors on {sorted(kinds)}; all on the "
-                     "CPU (plain version) or all on the card (kernel)")
-
-
 def copy_into(dst: torch.Tensor, src: torch.Tensor,
               cell_bytes: int = DEFAULT_CELL_BYTES) -> torch.Tensor:
     """``dst[:] = src`` for flat uint8 tensors of equal length; returns
@@ -123,7 +114,7 @@ def copy_into(dst: torch.Tensor, src: torch.Tensor,
     _flat_u8(src, "src")
     if dst.numel() != src.numel():
         raise ValueError(f"copy_into: {dst.numel()}B <- {src.numel()}B")
-    if _device_of(dst, src) == "cpu":
+    if route("cellcopy", dst, src) == "cpu":
         return ref.copy_bytes_ref(dst, src, cell_bytes)
     n_cells = -(-src.numel() // cell_bytes)
     sums = torch.empty(n_cells, dtype=torch.uint32, device=dst.device)
@@ -145,7 +136,7 @@ def cellcopy(src: torch.Tensor, block_cells: int = 8):
                          f"block_cells {block_cells}")
     if words % LANE:
         raise ValueError(f"cell words {words} not {LANE}-aligned")
-    if _device_of(src) == "cpu":
+    if route("cellcopy", src) == "cpu":
         return ref.cellcopy_ref(src)
     dst = torch.empty_like(src)
     sums = torch.empty(n_cells, dtype=torch.uint32, device=src.device)
@@ -174,7 +165,7 @@ def copy_message(buf, cell_bytes: int = 16384, block_cells: int = 8):
     buf = _flat_u8(torch.as_tensor(buf, dtype=torch.uint8), "buf")
     n = buf.numel()
     cell_bytes, n_cells = _cell_layout(n, cell_bytes, block_cells)
-    if _device_of(buf) == "cpu":
+    if route("cellcopy", buf) == "cpu":
         return buf.clone(), ref.cell_sums_ref(buf, cell_bytes, n_cells)
     out = torch.empty_like(buf)
     sums = torch.zeros(n_cells, dtype=torch.int32, device=buf.device)

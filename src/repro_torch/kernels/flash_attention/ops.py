@@ -1,0 +1,95 @@
+"""Wrappers for the flash attention kernel
+(``repro_torch/csrc/flash_attention.cu``).
+
+A tensor on the CPU goes to the plain version in ``ref``; a tensor on the
+card launches the kernel, and anything else raises. There is no fallback
+from one to the other. ``LAUNCHES`` counts kernel launches, so a run can
+show that its path went through the kernel.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import route
+from repro_torch.kernels.flash_attention import ref
+
+HEAD_DIMS = (32, 64, 128)        # template instances of the kernel
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+LAUNCHES = 0
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int):
+    """Shapes and types the kernel takes; ``heads`` is the axis of H in
+    the layout given."""
+    if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
+    seq = 3 - heads
+    if (q.shape[0], q.shape[seq], q.shape[3]) != \
+            (k.shape[0], k.shape[seq], k.shape[3]):
+        raise ValueError("flash_attention: q and k/v differ in batch, "
+                         "sequence or head size")
+    h, kv = q.shape[heads], k.shape[heads]
+    if kv == 0 or h % kv:
+        raise ValueError(f"flash_attention: {h} query heads over {kv} "
+                         "kv heads")
+    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"flash_attention: dtypes {q.dtype}, {k.dtype}, "
+                         f"{v.dtype}; float32 or bfloat16, all alike")
+    if q.shape[3] not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head size {q.shape[3]} not "
+                         f"in {HEAD_DIMS}")
+
+
+def _launch(q, k, v, causal: bool, heads: int) -> torch.Tensor:
+    """Run the kernel on q (.., H, .., D) and k, v (.., KV, .., D) in the
+    layout whose head axis is ``heads`` (1: BHSD, 2: BSHD); the output
+    has q's shape and layout."""
+    global LAUNCHES
+    from repro_torch.kernels.build import load
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    out = torch.empty_like(q)
+    seq = 3 - heads
+    b, s, d = q.shape[0], q.shape[seq], q.shape[3]
+    h, kv = q.shape[heads], k.shape[heads]
+    if b * h * s == 0:
+        return out
+
+    def strides(t):                  # (batch, head, seq) in elements
+        return t.stride(0), t.stride(heads), t.stride(seq)
+
+    rc = load().flash_attention_fwd(
+        ctypes.c_void_p(q.data_ptr()), ctypes.c_void_p(k.data_ptr()),
+        ctypes.c_void_p(v.data_ptr()), ctypes.c_void_p(out.data_ptr()),
+        DTYPES[q.dtype], b, h, kv, s, d, int(causal), *strides(q),
+        *strides(k), *strides(out),
+        ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    LAUNCHES += 1
+    if rc != 0:
+        raise RuntimeError(f"flash_attention launch failed: CUDA error {rc}")
+    return out
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+    """q: (B, H, S, D); k, v: (B, KV, S, D) with H % KV == 0. Returns
+    (B, H, S, D) in q.dtype. Query head h reads kv head h // (H // KV)."""
+    _check(q, k, v, heads=1)
+    if route("flash_attention", q, k, v) == "cpu":
+        return ref.attention_ref(q, k, v, causal=causal)
+    return _launch(q, k, v, causal, heads=1)
+
+
+def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True) -> torch.Tensor:
+    """q: (B, S, H, D); k, v: (B, S, KV, D) -- the models/blocks layout.
+    The kernel reads and writes this layout through strides, so nothing
+    is transposed on the card."""
+    _check(q, k, v, heads=2)
+    if route("flash_attention", q, k, v) == "cpu":
+        out = ref.attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                v.transpose(1, 2), causal=causal)
+        return out.transpose(1, 2)
+    return _launch(q, k, v, causal, heads=2)

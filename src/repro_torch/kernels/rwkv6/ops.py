@@ -1,0 +1,83 @@
+"""Wrappers for the WKV6 kernel (``repro_torch/csrc/wkv6.cu``).
+
+A tensor on the CPU goes to the plain version in ``ref``; a tensor on the
+card launches the kernel, and anything else raises. There is no fallback
+from one to the other. ``LAUNCHES`` counts kernel launches, so a run can
+show that its path went through the kernel.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import route
+from repro_torch.kernels.rwkv6 import ref
+
+HEAD_SIZES = (8, 16, 32, 64)     # template instances of the kernel
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+LAUNCHES = 0
+
+
+def _check(r, k, v, w, u, heads: int) -> None:
+    """Shapes and types the kernel takes; ``heads`` is the axis of H in
+    the layout given."""
+    if r.dim() != 4 or not (r.shape == k.shape == v.shape == w.shape):
+        raise ValueError(f"wkv6: r, k, v, w shapes {tuple(r.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}, "
+                         f"{tuple(w.shape)}")
+    h, n = r.shape[heads], r.shape[3]
+    if tuple(u.shape) != (h, n):
+        raise ValueError(f"wkv6: u {tuple(u.shape)}, want {(h, n)}")
+    if r.dtype not in DTYPES or k.dtype != r.dtype or v.dtype != r.dtype:
+        raise ValueError(f"wkv6: r, k, v dtypes {r.dtype}, {k.dtype}, "
+                         f"{v.dtype}; float32 or bfloat16, all alike")
+    if w.dtype != torch.float32 or u.dtype != torch.float32:
+        raise ValueError(f"wkv6: w and u must be float32 ({w.dtype}, "
+                         f"{u.dtype})")
+    if n not in HEAD_SIZES:
+        raise ValueError(f"wkv6: head size {n} not in {HEAD_SIZES}")
+
+
+def _launch(r, k, v, w, u, heads: int) -> torch.Tensor:
+    """Run the kernel in the layout whose head axis is ``heads`` (1:
+    BHSN, 2: BSHN); the f32 output has r's shape and layout."""
+    global LAUNCHES
+    from repro_torch.kernels.build import load
+    r, k, v, w, u = (a.contiguous() for a in (r, k, v, w, u))
+    out = torch.empty(r.shape, dtype=torch.float32, device=r.device)
+    seq = 3 - heads
+    b, h, s, n = r.shape[0], r.shape[heads], r.shape[seq], r.shape[3]
+    if b * h * s == 0:
+        return out
+    # r, k, v and w are contiguous and alike in shape: one set of strides
+    rc = load().wkv6_fwd(
+        *(ctypes.c_void_p(a.data_ptr()) for a in (r, k, v, w, u, out)),
+        DTYPES[r.dtype], b, h, s, n, r.stride(0), r.stride(heads),
+        r.stride(seq), out.stride(0), out.stride(heads), out.stride(seq),
+        ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    LAUNCHES += 1
+    if rc != 0:
+        raise RuntimeError(f"wkv6 launch failed: CUDA error {rc}")
+    return out
+
+
+def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+         u: torch.Tensor) -> torch.Tensor:
+    """r,k,v,w: (B, H, S, n); u: (H, n). Returns (B, H, S, n) f32."""
+    _check(r, k, v, w, u, heads=1)
+    if route("wkv6", r, k, v, w, u) == "cpu":
+        return ref.wkv6_ref(r, k, v, w, u)
+    return _launch(r, k, v, w, u, heads=1)
+
+
+def wkv6_bshn(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              w: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """r,k,v,w: (B, S, H, n); u: (H, n) -> (B, S, H, n) f32 (the
+    models/blocks._wkv6_scan layout). The kernel reads and writes this
+    layout through strides, so nothing is transposed on the card."""
+    _check(r, k, v, w, u, heads=2)
+    if route("wkv6", r, k, v, w, u) == "cpu":
+        args = (a.transpose(1, 2) for a in (r, k, v, w))
+        return ref.wkv6_ref(*args, u).transpose(1, 2)
+    return _launch(r, k, v, w, u, heads=2)

@@ -1,0 +1,389 @@
+"""Model building blocks in PyTorch: norms, rotary embeddings, attention
+(GQA, causal, chunked, decode with a cache), SwiGLU FFN, RWKV6 (Finch)
+time and channel mix.
+
+All blocks are plain functions ``apply(params, x, ...) -> y`` over
+parameter dicts laid out as the JAX package's trees. On a CUDA tensor the
+full-sequence causal self-attention and the WKV6 prefill run the port's
+hand-written kernels; on the CPU they keep the JAX package's jnp
+structure (``_plain_attention`` / ``_chunked_attention``, ``_wkv6_scan``),
+so the CPU tests compare like with like. Any other device raises.
+
+Left out of this slice (``ROADMAP.md`` Queue 1): mamba, MoE, cross
+attention, the int8 KV cache and the distribution hooks (``dist``).
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig, RWKVConfig
+from repro_torch.kernels import route
+from repro_torch.kernels.flash_attention.ops import flash_attention_bshd
+from repro_torch.kernels.rwkv6.ops import wkv6_bshn
+
+Params = dict[str, Any]
+
+NEG_INF = -1e30
+
+
+def unported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to repro_torch yet (ROADMAP.md {item})")
+
+
+def _no_dist(dist) -> None:
+    if dist is not None:
+        raise unported("dist (sharding, vocab-parallel, flashdecode)",
+                       "Queue 1 item 5, distribution layer")
+
+
+# --------------------------------------------------------------------------
+# small helpers
+# --------------------------------------------------------------------------
+
+def _dtype(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.compute_dtype)
+
+
+def dense_init(gen: torch.Generator, shape, scale: float | None = None,
+               dtype=torch.float32, device="cpu", lead: tuple = ()):
+    """Normal(0, 1/sqrt(fan_in)) weights from ``gen``; ``lead`` prepends
+    stacking axes (the groups) that do not count in the fan-in."""
+    fan_in = shape[0]
+    scale = scale if scale is not None else 1.0 / math.sqrt(fan_in)
+    w = torch.randn((*lead, *shape), generator=gen, dtype=torch.float32,
+                    device=device)
+    return w.mul_(scale).to(dtype)
+
+
+def rmsnorm(x, scale, eps: float):
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps) * scale.float()
+    return out.to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# rotary position embeddings
+# --------------------------------------------------------------------------
+
+def rope_freqs(d_head: int, theta: float, device="cpu"):
+    exps = torch.arange(0, d_head, 2, dtype=torch.float32,
+                        device=device) / d_head
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x, positions, theta: float):
+    """x: (..., S, n_heads, d_head); positions: (..., S) int. The two
+    halves of the head rotate as pairs (split halves, f32)."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)
+    ang = positions[..., None].float() * freqs             # (..., S, d/2)
+    cos = torch.cos(ang)[..., None, :]                      # over heads
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# attention
+# --------------------------------------------------------------------------
+
+def attn_init(gen, cfg: ModelConfig, *, device="cpu", lead=()) -> Params:
+    D, H, KV, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    dt = getattr(torch, cfg.param_dtype)
+    kw = dict(dtype=dt, device=device, lead=lead)
+    return {
+        "wq": dense_init(gen, (D, H * Dh), **kw),
+        "wk": dense_init(gen, (D, KV * Dh), **kw),
+        "wv": dense_init(gen, (D, KV * Dh), **kw),
+        "wo": dense_init(gen, (H * Dh, D), scale=1.0 / math.sqrt(H * Dh),
+                         **kw),
+    }
+
+
+def _repeat_kv(k, n_rep: int):
+    """(B, S, KV, Dh) -> (B, S, KV*n_rep, Dh) by head repetition (GQA)."""
+    if n_rep == 1:
+        return k
+    b, s, kv, dh = k.shape
+    k = k[:, :, :, None, :].expand(b, s, kv, n_rep, dh)
+    return k.reshape(b, s, kv * n_rep, dh)
+
+
+def _plain_attention(q, k, v, causal: bool, q_offset=0,
+                     kv_len: Optional[torch.Tensor] = None):
+    """q: (B,Sq,H,Dh)  k,v: (B,Sk,H,Dh). f32 scores and softmax."""
+    b, sq, h, dh = q.shape
+    sk = k.shape[1]
+    scale = 1.0 / math.sqrt(dh)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if causal:
+        qpos = q_offset + torch.arange(sq, device=q.device)[:, None]
+        kpos = torch.arange(sk, device=q.device)[None, :]
+        scores = scores.masked_fill(~(kpos <= qpos)[None, None], NEG_INF)
+    if kv_len is not None:
+        valid = (torch.arange(sk, device=q.device)[None, None, None, :]
+                 < kv_len[:, None, None, None])
+        scores = scores.masked_fill(~valid, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def _chunked_attention(q, k, v, causal: bool, q_chunk: int, kv_chunk: int):
+    """Memory-efficient (online-softmax) attention; never materializes SxS.
+    The plain mirror of the flash attention kernel, block by block as the
+    JAX package computes it: every kv block is visited, those above the
+    diagonal fully masked (they change nothing)."""
+    b, s, h, dh = q.shape
+    sk = k.shape[1]
+    if s % q_chunk or sk % kv_chunk:
+        raise ValueError(f"chunked attention: {s}/{sk} not divisible by "
+                         f"{q_chunk}/{kv_chunk}")
+    nq, nk = s // q_chunk, sk // kv_chunk
+    scale = 1.0 / math.sqrt(dh)
+    outs = []
+    for qi in range(nq):
+        qb = q[:, qi * q_chunk:(qi + 1) * q_chunk].float()
+        acc = torch.zeros((b, h, q_chunk, dh), dtype=torch.float32,
+                          device=q.device)
+        m = torch.full((b, h, q_chunk), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros((b, h, q_chunk), dtype=torch.float32,
+                        device=q.device)
+        for ki in range(nk):
+            kb = k[:, ki * kv_chunk:(ki + 1) * kv_chunk]
+            vb = v[:, ki * kv_chunk:(ki + 1) * kv_chunk]
+            scores = torch.einsum("bqhd,bkhd->bhqk", qb, kb.float()) * scale
+            if causal:
+                qpos = qi * q_chunk + torch.arange(
+                    q_chunk, device=q.device)[:, None]
+                kpos = ki * kv_chunk + torch.arange(
+                    kv_chunk, device=q.device)[None, :]
+                scores = scores.masked_fill(~(kpos <= qpos)[None, None],
+                                            NEG_INF)
+            m_new = torch.maximum(m, scores.amax(dim=-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(scores - m_new[..., None])
+            l = l * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bhqk,bkhd->bhqd", p.to(q.dtype).float(), vb.float())
+            m = m_new
+        out = acc / torch.clamp(l, min=1e-30)[..., None]
+        outs.append(out.transpose(1, 2))                 # (B, qc, H, Dh)
+    return torch.cat(outs, dim=1).to(q.dtype)
+
+
+def attn_apply(params: Params, cfg: ModelConfig, x, positions, *,
+               ctx=None, cache=None, cache_len=None, dist=None):
+    """Causal self-attention.
+
+    x: (B, S, D). cache: optional dict {k: (B, KV, Smax, Dh), v: ...} for
+    decode; when given, S must be 1 and ``cache_len`` (B,) gives the
+    valid prefix length. The cache is updated in place (the JAX package
+    returns a new one): the one-hot update keeps its add semantics, the
+    ``dus`` update is an indexed write. Returns (out, cache).
+    """
+    if ctx is not None:
+        raise unported("cross-attention (cross_attn)",
+                       "Queue 1, cross-attention/VLM")
+    _no_dist(dist)
+    D, H, KV, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    b, s, _ = x.shape
+    cdt = _dtype(cfg)
+    q = (x @ params["wq"].to(cdt)).reshape(b, s, H, Dh)
+    k = (x @ params["wk"].to(cdt)).reshape(b, s, KV, Dh)
+    v = (x @ params["wv"].to(cdt)).reshape(b, s, KV, Dh)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+
+    if cache is not None:
+        if s != 1:
+            raise ValueError(f"decode with a cache takes one token, got {s}")
+        k_cache, v_cache = cache["k"], cache["v"]     # (B, KV, Smax, Dh)
+        pos = cache_len                                # (B,) int
+        kn, vn = k.transpose(1, 2), v.transpose(1, 2)  # (B, KV, 1, Dh)
+        if cfg.kv_update == "dus":
+            rows = torch.arange(b, device=x.device)
+            k_cache[rows, :, pos] = kn[:, :, 0].to(k_cache.dtype)
+            v_cache[rows, :, pos] = vn[:, :, 0].to(v_cache.dtype)
+        else:
+            oh = F.one_hot(pos.long(), k_cache.shape[2]).to(k.dtype)
+            k_cache.add_(oh[:, None, :, None] * kn)
+            v_cache.add_(oh[:, None, :, None] * vn)
+        k_full = _repeat_kv(k_cache.transpose(1, 2), H // KV)
+        v_full = _repeat_kv(v_cache.transpose(1, 2), H // KV)
+        out = _plain_attention(q, k_full, v_full, causal=False,
+                               kv_len=cache_len + 1)
+    elif route("attention", q, k, v) == "cuda":
+        # the kernel maps query head h to kv head h // (H // KV) itself
+        out = flash_attention_bshd(q, k, v, causal=True)
+    else:
+        k = _repeat_kv(k, H // KV)
+        v = _repeat_kv(v, H // KV)
+        chunk = cfg.attn_chunk or (1024 if s > 8192 else 0)
+        if chunk and s % chunk == 0:
+            out = _chunked_attention(q, k, v, causal=True, q_chunk=chunk,
+                                     kv_chunk=chunk)
+        else:
+            out = _plain_attention(q, k, v, causal=True)
+    out = out.reshape(b, s, H * Dh)
+    return out @ params["wo"].to(cdt), cache
+
+
+# --------------------------------------------------------------------------
+# FFNs
+# --------------------------------------------------------------------------
+
+def ffn_init(gen, cfg: ModelConfig, *, device="cpu", lead=()) -> Params:
+    D, Fd = cfg.d_model, cfg.d_ff
+    kw = dict(dtype=getattr(torch, cfg.param_dtype), device=device,
+              lead=lead)
+    return {
+        "w_gate": dense_init(gen, (D, Fd), **kw),
+        "w_up": dense_init(gen, (D, Fd), **kw),
+        "w_down": dense_init(gen, (Fd, D), scale=1.0 / math.sqrt(Fd), **kw),
+    }
+
+
+def ffn_apply(params: Params, cfg: ModelConfig, x):
+    cdt = _dtype(cfg)
+    g = x @ params["w_gate"].to(cdt)
+    u = x @ params["w_up"].to(cdt)
+    return (F.silu(g) * u) @ params["w_down"].to(cdt)
+
+
+def cmix_init(gen, cfg: ModelConfig, *, device="cpu", lead=()) -> Params:
+    """RWKV channel-mix: receptance-gated squared-relu FFN with token shift."""
+    D, Fd = cfg.d_model, cfg.d_ff
+    dt = getattr(torch, cfg.param_dtype)
+    kw = dict(dtype=dt, device=device, lead=lead)
+    return {
+        "cm_r": dense_init(gen, (D, D), **kw),
+        "cm_k": dense_init(gen, (D, Fd), **kw),
+        "cm_v": dense_init(gen, (Fd, D), scale=1.0 / math.sqrt(Fd), **kw),
+        "mix_k": torch.full((*lead, D), 0.5, dtype=dt, device=device),
+        "mix_r": torch.full((*lead, D), 0.5, dtype=dt, device=device),
+    }
+
+
+def _shift(x, x_prev):
+    """The previous token of each position: zero before the first, or
+    ``x_prev`` (B, D) at decode (S == 1)."""
+    if x_prev is None:
+        return F.pad(x, (0, 0, 1, 0))[:, :-1]
+    return x_prev[:, None, :]
+
+
+def cmix_apply(params: Params, cfg: ModelConfig, x, x_prev=None):
+    """x: (B,S,D). x_prev: (B,D) decode-state token shift; returns
+    (y, last_x)."""
+    cdt = _dtype(cfg)
+    shifted = _shift(x, x_prev)
+    mk, mr = params["mix_k"].to(cdt), params["mix_r"].to(cdt)
+    xk = x * mk + shifted * (1 - mk)
+    xr = x * mr + shifted * (1 - mr)
+    r = torch.sigmoid(xr @ params["cm_r"].to(cdt))
+    k = torch.square(torch.relu(xk @ params["cm_k"].to(cdt)))
+    return r * (k @ params["cm_v"].to(cdt)), x[:, -1, :]
+
+
+# --------------------------------------------------------------------------
+# RWKV6 (Finch) time mix
+# --------------------------------------------------------------------------
+
+def rwkv6_init(gen, cfg: ModelConfig, *, device="cpu", lead=()) -> Params:
+    rc = cfg.rwkv or RWKVConfig()
+    D = cfg.d_model
+    H = D // rc.head_size
+    dt = getattr(torch, cfg.param_dtype)
+    kw = dict(dtype=dt, device=device, lead=lead)
+    return {
+        "wr": dense_init(gen, (D, D), **kw),
+        "wk": dense_init(gen, (D, D), **kw),
+        "wv": dense_init(gen, (D, D), **kw),
+        "wg": dense_init(gen, (D, D), **kw),
+        "wo": dense_init(gen, (D, D), **kw),
+        "w0": torch.full((*lead, D), -2.0, dtype=dt, device=device),
+        "w_a": dense_init(gen, (D, rc.decay_lora), **kw),
+        "w_b": dense_init(gen, (rc.decay_lora, D), scale=0.1, **kw),
+        "u": dense_init(gen, (H, rc.head_size), scale=0.5, **kw),
+        "mix_x": torch.full((*lead, D), 0.5, dtype=dt, device=device),
+    }
+
+
+def _wkv6_scan(r, k, v, w, u):
+    """Linear recurrence with data-dependent per-channel decay (exact).
+
+    r,k,v: (B,S,H,n); w: (B,S,H,n) decay in (0,1); u: (H,n) bonus.
+        S_t = diag(w_t) S_{t-1} + k_t v_t^T
+        o_t = r_t (S_{t-1} + diag(u) k_t v_t^T)
+    Sequential over time, f32 -- the plain version the CPU runs.
+    """
+    b, S, h, n = r.shape
+    r, k, v, w = (a.float() for a in (r, k, v, w))
+    uu = u[None, :, :, None]
+    state = torch.zeros((b, h, n, n), dtype=torch.float32, device=r.device)
+    outs = []
+    for t in range(S):
+        kv = torch.einsum("bhn,bhm->bhnm", k[:, t], v[:, t])
+        outs.append(torch.einsum("bhn,bhnm->bhm", r[:, t], state + uu * kv))
+        state = state * w[:, t, ..., None] + kv
+    return torch.stack(outs, dim=1)                 # (B, S, H, n)
+
+
+def rwkv6_apply(params: Params, cfg: ModelConfig, x, *, state=None):
+    """x: (B,S,D). state: {"S": (B,H,n,n), "x_prev": (B,D)} for decode,
+    updated in place (the JAX package returns a new one). Returns
+    (y, state or None)."""
+    rc = cfg.rwkv or RWKVConfig()
+    cdt = _dtype(cfg)
+    b, s, D = x.shape
+    n = rc.head_size
+    H = D // n
+
+    shifted = _shift(x, None if state is None else state["x_prev"])
+    mix = params["mix_x"].to(cdt)
+    xm = x * mix + shifted * (1 - mix)
+
+    r = (xm @ params["wr"].to(cdt)).reshape(b, s, H, n)
+    k = (xm @ params["wk"].to(cdt)).reshape(b, s, H, n)
+    v = (xm @ params["wv"].to(cdt)).reshape(b, s, H, n)
+    g = F.silu(xm @ params["wg"].to(cdt))
+    w_log = params["w0"].float() + (
+        torch.tanh(xm @ params["w_a"].to(cdt)) @ params["w_b"].to(cdt)
+    ).float()
+    w = torch.exp(-torch.exp(w_log)).reshape(b, s, H, n)   # decay in (0,1)
+    u = params["u"].float()
+
+    if state is None:
+        if route("wkv6", r, k, v, w, u) == "cuda":
+            o = wkv6_bshn(r, k, v, w, u)
+        else:
+            o = _wkv6_scan(r, k, v, w, u)
+    else:
+        S0 = state["S"]                                # (B,H,n,n)
+        rf, kf, vf, wf = (a[:, 0].float() for a in (r, k, v, w))
+        kv = torch.einsum("bhn,bhm->bhnm", kf, vf)
+        o = torch.einsum("bhn,bhnm->bhm", rf,
+                         S0 + u[None, :, :, None] * kv)[:, None]
+        S0.mul_(wf[..., None]).add_(kv)
+        state["x_prev"].copy_(x[:, -1, :])
+    o = o.reshape(b, s, D).to(cdt) * g
+    return o @ params["wo"].to(cdt), state
+
+
+def rwkv6_state_init(cfg: ModelConfig, batch: int, *, device="cpu",
+                     lead=()):
+    rc = cfg.rwkv or RWKVConfig()
+    H = cfg.d_model // rc.head_size
+    return {
+        "S": torch.zeros((*lead, batch, H, rc.head_size, rc.head_size),
+                         dtype=torch.float32, device=device),
+        "x_prev": torch.zeros((*lead, batch, cfg.d_model),
+                              dtype=_dtype(cfg), device=device),
+    }

@@ -93,3 +93,82 @@ def test_kernel_wrappers_never_fall_back():
     ops.copy_into(torch.zeros(16, dtype=torch.uint8),
                   torch.from_numpy(np.arange(16, dtype=np.uint8)))
     assert ops.LAUNCHES == launches      # the plain version is no launch
+
+
+def test_model_kernels_refuse_a_device_tensor():
+    """flash_attention, wkv6 and lm.prefill on a tensor off the CPU (meta
+    stands in for the card here) raise instead of computing."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.rwkv6 import ops as wk
+    from repro_torch.models import lm
+
+    def meta(*shape, dtype=torch.float32):
+        return torch.zeros(shape, dtype=dtype, device="meta")
+
+    with pytest.raises(ValueError, match="meta"):
+        fa.flash_attention(meta(1, 2, 8, 32), meta(1, 2, 8, 32),
+                           meta(1, 2, 8, 32))
+    with pytest.raises(ValueError, match="meta"):
+        fa.flash_attention_bshd(meta(1, 8, 2, 32), meta(1, 8, 2, 32),
+                                meta(1, 8, 2, 32))
+    with pytest.raises(ValueError, match="meta"):
+        wk.wkv6(*(meta(1, 2, 4, 8) for _ in range(4)), meta(2, 8))
+    for arch in ("llama3-8b", "rwkv6-3b"):
+        cfg = get_config(arch).reduced()
+        params = lm.init(cfg, device="meta")
+        with pytest.raises(ValueError, match="meta"):
+            lm.prefill(params, cfg, {"tokens": torch.zeros(
+                (1, 8), dtype=torch.int32, device="meta")})
+
+
+def test_model_entry_points_default_to_the_card():
+    _no_card()
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.models import lm
+    cfg = get_config("smollm-135m").reduced()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        lm.init(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        lm.decode_state_init(cfg, 1, 4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve_batch(cfg, batch=1, prompt_len=2, gen=1, quiet=True)
+
+
+@pytest.mark.parametrize("kernel", ["flash_attention", "wkv6"])
+def test_card_route_never_reaches_the_plain_version(kernel, monkeypatch):
+    """With the route forced to the card, the wrapper goes to the kernel
+    library (stubbed to raise, so nothing is built or launched) and never
+    to ``ref``."""
+    import importlib
+
+    from repro_torch.kernels import build
+
+    def no_library():
+        raise RuntimeError("kernel library requested")
+
+    monkeypatch.setattr(build, "load", no_library)
+    ops_ = importlib.import_module(
+        f"repro_torch.kernels.{'rwkv6' if kernel == 'wkv6' else kernel}.ops")
+    monkeypatch.setattr(ops_, "route", lambda name, *ts: "cuda")
+
+    def plain(*a, **k):
+        raise AssertionError("a card tensor reached the plain version")
+
+    for name in dir(ops_.ref):
+        if name.endswith("_ref"):
+            monkeypatch.setattr(ops_.ref, name, plain)
+    if kernel == "wkv6":
+        calls = [lambda: ops_.wkv6(*(torch.zeros(1, 2, 4, 8)
+                                     for _ in range(4)), torch.zeros(2, 8)),
+                 lambda: ops_.wkv6_bshn(*(torch.zeros(1, 4, 2, 8)
+                                          for _ in range(4)),
+                                        torch.zeros(2, 8))]
+    else:
+        x = torch.zeros(1, 2, 8, 32)
+        calls = [lambda: ops_.flash_attention(x, x, x),
+                 lambda: ops_.flash_attention_bshd(x, x, x)]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="kernel library requested"):
+            call()
