@@ -116,8 +116,10 @@ def load() -> ctypes.CDLL:
             lib.pool_device_pointer.restype = ctypes.c_int
             i = ctypes.c_int
             lib.flash_attention_fwd.argtypes = [vp] * 4 + [i] * 7 + \
-                [ll] * 9 + [vp]
+                [ll] * 12 + [vp]
             lib.flash_attention_fwd.restype = ctypes.c_int
+            lib.flash_attention_smem.argtypes = [i, i]
+            lib.flash_attention_smem.restype = ctypes.c_int
             lib.wkv6_fwd.argtypes = [vp] * 6 + [i] * 5 + [ll] * 6 + [vp]
             lib.wkv6_fwd.restype = ctypes.c_int
             _lib = lib

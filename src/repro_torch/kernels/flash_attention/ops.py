@@ -3,8 +3,10 @@
 
 A tensor on the CPU goes to the plain version in ``ref``; a tensor on the
 card launches the kernel, and anything else raises. There is no fallback
-from one to the other. ``LAUNCHES`` counts kernel launches, so a run can
-show that its path went through the kernel.
+from one to the other. On the card the dtype picks the kernel: bfloat16
+runs on the tensor cores (wgmma fed by TMA), float32 on IEEE FMA.
+``LAUNCHES`` counts kernel launches, so a run can show that its path
+went through the kernel.
 """
 from __future__ import annotations
 
@@ -43,13 +45,27 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int):
                          f"in {HEAD_DIMS}")
 
 
+def _tma_ready(t: torch.Tensor, heads: int) -> bool:
+    """What the bf16 kernel's TMA maps need (and the f32 kernel takes
+    too): the head dimension contiguous, the base pointer and the
+    (batch, head, seq) strides positive multiples of 16 bytes."""
+    es = t.element_size()
+    return (t.stride(3) == 1 and t.data_ptr() % 16 == 0 and all(
+        st > 0 and st * es % 16 == 0
+        for st in (t.stride(0), t.stride(heads), t.stride(3 - heads))))
+
+
 def _launch(q, k, v, causal: bool, heads: int) -> torch.Tensor:
     """Run the kernel on q (.., H, .., D) and k, v (.., KV, .., D) in the
     layout whose head axis is ``heads`` (1: BHSD, 2: BSHD); the output
-    has q's shape and layout."""
+    has q's shape and layout. A tensor the kernel cannot address as it
+    lies is first copied into a fresh contiguous one."""
     global LAUNCHES
     from repro_torch.kernels.build import load
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    lib = load()
+    q, k, v = (t if _tma_ready(t, heads) else
+               t.clone(memory_format=torch.contiguous_format)
+               for t in (q, k, v))
     out = torch.empty_like(q)
     seq = 3 - heads
     b, s, d = q.shape[0], q.shape[seq], q.shape[3]
@@ -60,11 +76,11 @@ def _launch(q, k, v, causal: bool, heads: int) -> torch.Tensor:
     def strides(t):                  # (batch, head, seq) in elements
         return t.stride(0), t.stride(heads), t.stride(seq)
 
-    rc = load().flash_attention_fwd(
+    rc = lib.flash_attention_fwd(
         ctypes.c_void_p(q.data_ptr()), ctypes.c_void_p(k.data_ptr()),
         ctypes.c_void_p(v.data_ptr()), ctypes.c_void_p(out.data_ptr()),
         DTYPES[q.dtype], b, h, kv, s, d, int(causal), *strides(q),
-        *strides(k), *strides(out),
+        *strides(k), *strides(v), *strides(out),
         ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     LAUNCHES += 1
     if rc != 0:
