@@ -7,15 +7,20 @@ Phases, each of which fails the run on error:
 
 1. build   nvcc builds the kernel library from ``src/repro_torch/csrc``
            (one nvcc per source, all started together); prints each
-           flash kernel's registers, spills and shared memory (from
-           ptxas) and, where ``cuobjdump`` exists, the HGMMA (wgmma)
-           instructions of the bf16 kernels, failing if there are none.
+           kernel's registers and spills (from ptxas), each flash
+           kernel's shared memory and, where ``cuobjdump`` exists, the
+           HGMMA (wgmma) instructions of the bf16 kernels, failing if
+           there are none; ``cellcopy``'s cluster size per shape and its
+           shared memory (failing unless ``ops.smem_bytes`` states it);
+           ``wkv6``'s CTAs and dynamic shared memory per instance.
 2. kernel  each kernel against its plain PyTorch version on the card:
            ``cellcopy`` bit-exact on the copied bytes and the per-cell
            sums (the cell shapes of ``tests/test_kernels.py``,
            ``copy_message`` at 8 MiB with 16 KiB and 64 KiB cells,
-           byte-range copies at odd lengths and offsets = 1, 3, 8 (mod 16)
-           between device memory and the pinned, mapped pool, one
+           byte-range copies at odd lengths, at the edges of a CTA's
+           slice and of a cell, and offsets = 1, 3, 8 (mod 16) between
+           device memory and the pinned, mapped pool, in 16 KiB and
+           64 KiB cells, each launch as ``ops.launch_plan`` gives it; one
            corrupted cell that ``verify`` must catch); ``flash_attention``
            on the cases of ``tests/test_kernels.py``, at the model
            path's shapes and at the bf16 kernel's edges (D = 32, 64 and
@@ -24,7 +29,8 @@ Phases, each of which fails the run on error:
            ``assert_allclose``), in both layouts; bf16 also within a
            relative L2 error of ``FLASH_L2`` (scaled to the output's own
            size, which at S = 4096 is about that 3e-2); ``wkv6``
-           likewise, within rel < 1e-4.
+           likewise, within rel < 1e-4, at the edges of its 32-token
+           chunks too, each launch as ``ops.launch_plan`` gives it.
 3. main    ``run_processes(2, ..., pool_bytes=512 MiB, cell_size=16 KiB,
            device="cuda")``: CUDA tensors of 8 B to 8 MiB cross the pool
            on the eager, staged and posted paths in both directions and
@@ -43,7 +49,8 @@ Phases, each of which fails the run on error:
            teacher-forced decode's (which runs no kernel) within
            1e-3 * max|logit|.
 5. report  the ``kernels`` JSON line (times at the main paths' shapes,
-           and the f32 kernel at the long prompt),
+           ``cellcopy``'s beside ``Tensor.copy_``, ``wkv6``'s in cycles
+           per token, and the f32 flash kernel at the long prompt),
            one-way latency and bandwidth per path and size, the serving
            numbers per model, and the card's name and power limit.
 
@@ -268,6 +275,60 @@ def _u32(t):
     return t.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
 
 
+def _plan_check(n: int, cell: int) -> None:
+    """The launch the library makes (``cellcopy_plan``) is the one
+    ``ops.launch_plan`` gives, which the CPU tests hold to the bytes."""
+    import ctypes
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels.cellcopy import ops
+    out = (ctypes.c_longlong * 4)()
+    rc = build.load().cellcopy_plan(n, cell, out)
+    plan = ops.launch_plan(n, cell)
+    want = [plan["grid"], plan["cluster"], plan["threads"],
+            plan["smem_bytes"]]
+    if rc or list(out) != want:
+        fail(f"cellcopy launch of {n} B in {cell} B cells: library "
+             f"{list(out)} (rc {rc}), launch_plan {want}")
+
+
+def _byte_ranges(pool, check: Check, big, cell: int, lengths) -> None:
+    """Copies of ``lengths`` bytes at source and destination offsets 0,
+    1, 3 and 8 (mod 16): device to device, device to the mapped pool and
+    back, bytes and per-cell sums bit-exact."""
+    import torch
+
+    from repro_torch.kernels.cellcopy import ops, ref
+    dev = big.device
+    for n in lengths:
+        _plan_check(n, cell)
+        n_cells = -(-n // cell)
+        for so in (0, 1, 3, 8):
+            src = big[so:so + n]
+            want_sums = _u32(ref.cell_sums_ref(src, cell, n_cells))
+            for do in (0, 1, 3, 8):
+                what = f"{n}@{so}->{do}/{cell}"
+                plain = torch.zeros(n + 32, dtype=torch.uint8, device=dev)
+                ref.copy_bytes_ref(plain[do:do + n], src, cell)
+                dst = torch.zeros(n + 32, dtype=torch.uint8, device=dev)
+                s = ops.copy_into(dst[do:do + n], src, cell)
+                check.same(f"d2d {what}", dst, plain)
+                check.same(f"d2d sums {what}", _u32(s), want_sums)
+                off = 4096 + do
+                sums = torch.empty(n_cells, dtype=torch.uint32, device=dev)
+                ops.copy_bytes(pool.device_ptr(off, n), src.data_ptr(), n,
+                               cell, sums)
+                torch.cuda.synchronize()
+                check.same(f"d2pool {what}", pool.device_view(off, n), src)
+                check.same(f"d2pool sums {what}", _u32(sums), want_sums)
+                back = torch.zeros(n + 32, dtype=torch.uint8, device=dev)
+                ops.copy_bytes(back.data_ptr() + so, pool.device_ptr(off, n),
+                               n, cell, sums)
+                torch.cuda.synchronize()
+                check.same(f"pool2d {what}", back[so:so + n], src)
+                check.same(f"pool2d sums {what}", _u32(sums), want_sums)
+
+
 def kernel_phase(pool, check: Check) -> None:
     import torch
 
@@ -293,36 +354,17 @@ def kernel_phase(pool, check: Check) -> None:
             check.same(f"copy_message {n}/{cb} bytes", o, msg)
             check.same(f"copy_message {n}/{cb} sums", _u32(s),
                        _u32(ref.cell_sums_ref(msg, rcb, rcells)))
-    # byte ranges, any alignment: device -> pool -> device
+    # byte ranges, any alignment: device -> pool -> device; lengths at
+    # the edges of a CTA's slice (4 KiB), of a cell, and one cell plus
+    # one slice; then 64 KiB cells (8 CTAs of 8 KiB a cell)
     big = torch.randint(0, 256, (MiB + 64,), dtype=torch.uint8, device=dev,
                         generator=g)
-    for n in (1, 3, 15, 16, 17, 255, 4097, 16383, 16385, 100_003, MiB + 5):
-        for so in (0, 1, 3, 8):
-            for do in (0, 1, 3, 8):
-                src = big[so:so + n]
-                want_sums = _u32(ref.cell_sums_ref(src, CELL,
-                                                   -(-n // CELL)))
-                plain = torch.zeros(n + 32, dtype=torch.uint8, device=dev)
-                ref.copy_bytes_ref(plain[do:do + n], src, CELL)
-                dst = torch.zeros(n + 32, dtype=torch.uint8, device=dev)
-                s = ops.copy_into(dst[do:do + n], src, CELL)
-                check.same(f"d2d {n}@{so}->{do}", dst, plain)
-                check.same(f"d2d sums {n}", _u32(s), want_sums)
-                off = 4096 + do
-                sums = torch.empty(-(-n // CELL), dtype=torch.uint32,
-                                   device=dev)
-                ops.copy_bytes(pool.device_ptr(off, n), src.data_ptr(), n,
-                               CELL, sums)
-                torch.cuda.synchronize()
-                check.same(f"d2pool {n}@{so}->{do}",
-                           pool.device_view(off, n), src)
-                check.same(f"d2pool sums {n}", _u32(sums), want_sums)
-                back = torch.zeros(n + 32, dtype=torch.uint8, device=dev)
-                ops.copy_bytes(back.data_ptr() + so, pool.device_ptr(off, n),
-                               n, CELL, sums)
-                torch.cuda.synchronize()
-                check.same(f"pool2d {n}@{do}->{so}", back[so:so + n], src)
-                check.same(f"pool2d sums {n}", _u32(sums), want_sums)
+    _byte_ranges(pool, check, big, CELL, (
+        1, 3, 15, 16, 17, 255, 4095, 4096, 4097, 16368, 16383, 16384,
+        16385, CELL + 4096, CELL + 4097, 100_003, MiB + 5))
+    _byte_ranges(pool, check, big, 4 * CELL, (
+        8191, 8193, 4 * CELL - 1, 4 * CELL + 1, 4 * CELL + 8192,
+        3 * 4 * CELL + 5))
     src = torch.randint(0, 100, (8, 128), dtype=torch.int32, device=dev,
                         generator=g)
     d, s = ops.cellcopy(src, block_cells=2)
@@ -420,11 +462,14 @@ def timings(pool) -> list[dict]:
         # plus 4 B of sum per cell into device memory
         hbm = hbm_bytes + 4 * n_cells
         bound = max(pcie_bytes / PCIE_BPS, hbm / HBM_BPS) * 1e3
+        plan = ops.launch_plan(n, CELL, dst.data_ptr() % 16,
+                               s.data_ptr() % 16)
         rows.append({"shape": name, "bytes": n, "ms": kern,
                      "plain_ms": plain, "library_ms": lib,
-                     "bound_ms": bound,
+                     "vs_copy_": kern / lib, "bound_ms": bound,
                      "bound_link": "pcie" if pcie_bytes else "hbm",
-                     "GBps": n / kern / 1e6, "issued_ms": kern_issued,
+                     "GBps": n / kern / 1e6, "CTAs": plan["grid"],
+                     "cluster": plan["cluster"], "issued_ms": kern_issued,
                      "plain_issued_ms": plain_issued,
                      "library_issued_ms": lib_issued})
     return rows
@@ -512,12 +557,17 @@ FLASH_CASES = [
 # output's norm; the bound is 2^-7, one bf16 ulp at the bottom of a
 # binade.
 FLASH_L2 = 2.0 ** -7
-# (b, h, s, n, dtype of r, k, v): the sweep and the path's shapes
+# (b, h, s, n, dtype of r, k, v): the sweep and the path's shapes, and
+# the kernel's chunk edges (32 tokens): S = 1, one chunk plus one token,
+# a ragged last chunk at the long prompt and at B = 4; each case runs in
+# both layouts (BHSN and BSHN)
 WKV6_CASES = [
     (2, 2, 64, 16, "float32"), (1, 4, 128, 32, "float32"),
     (2, 1, 96, 64, "float32"), (1, 1, 32, 8, "float32"),
     (4, 40, 128, 64, "bfloat16"), (4, 40, 128, 64, "float32"),
-    (1, 40, 4096, 64, "bfloat16")]
+    (1, 40, 4096, 64, "bfloat16"), (2, 4, 1, 64, "bfloat16"),
+    (1, 40, 33, 64, "float32"), (1, 40, 4095, 64, "bfloat16"),
+    (4, 8, 77, 64, "bfloat16")]
 
 
 def _randn(shape, g, dtype="float32"):
@@ -536,6 +586,27 @@ def _wkv6_inputs(b, h, s, n, dtype, g):
     r, k, v = (_randn((b, h, s, n), g, dtype) for _ in range(3))
     w = torch.exp(-torch.exp(_randn((b, h, s, n), g) * 0.5 - 2.0))
     return r, k, v, w, _randn((h, n), g) * 0.5
+
+
+def _wkv6_plan(b, h, s, n, dtype) -> dict:
+    """The launch the library makes for the case, checked against
+    ``ops.launch_plan`` (whose schedule the CPU tests emulate)."""
+    import ctypes
+
+    import torch
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels.rwkv6 import ops
+    out = (ctypes.c_int * 8)()
+    dt = getattr(torch, dtype)
+    rc = build.load().wkv6_plan(ops.DTYPES[dt], b, h, n, out)
+    plan = ops.launch_plan(b, h, s, n, dt)
+    want = [*plan["grid"], plan["threads"], plan["smem_bytes"],
+            plan["chunk"], plan["cols"], plan["row_groups"]]
+    if rc or list(out) != want:
+        fail(f"wkv6 launch of {(b, h, s, n, dtype)}: library {list(out)} "
+             f"(rc {rc}), launch_plan {want}")
+    return plan
 
 
 def model_kernel_phase(fcheck: FloatCheck, wcheck: FloatCheck) -> None:
@@ -559,6 +630,7 @@ def model_kernel_phase(fcheck: FloatCheck, wcheck: FloatCheck) -> None:
         fcheck.close(what + " bshd", got.transpose(1, 2), want, tol, l2)
         del q, k, v, want, got
     for b, h, s, n, dt in WKV6_CASES:
+        _wkv6_plan(b, h, s, n, dt)
         args = _wkv6_inputs(b, h, s, n, dt, g)
         want = wk_ref.wkv6_ref(*args)
         what = f"({b},{h},{s},{n}) {dt}"
@@ -628,6 +700,7 @@ def model_kernel_timings() -> tuple[list[dict], list[dict]]:
                       "TFLOPs": flops / kern / 1e9})
         del q, k, v
     wkv = []
+    clock_hz = sm_clock_max_hz()
     for b, s in ((4, SERVE["prompt_len"]), (1, LONG_PROMPT)):
         shape = (b, 40, s, 64)
         args = _wkv6_inputs(*shape, "bfloat16", g)
@@ -636,11 +709,17 @@ def model_kernel_timings() -> tuple[list[dict], list[dict]]:
                             spin=False)
         flops, nbytes = _wkv6_work(*shape, "bfloat16")
         bound, by = _bound_ms(flops, nbytes, "float32")
+        plan = _wkv6_plan(*shape, "bfloat16")
+        gx, gy, gz = plan["grid"]
         wkv.append({"shape": f"B={b} H=40 S={s} n=64 bf16 r,k,v",
                     "ms": kern, "issued_ms": kern_issued,
                     "plain_ms": plain, "library_ms": None,
                     "bound_ms": bound, "bound_by": by,
-                    "CTAs": b * 40, "threads_per_CTA": 64})
+                    "CTAs": gx * gy * gz,
+                    "threads_per_CTA": plan["threads"],
+                    "smem_bytes": plan["smem_bytes"],
+                    "cycles_per_token_at_max_clock":
+                        kern * 1e-3 * clock_hz / s})
     return flash, wkv
 
 
@@ -868,6 +947,64 @@ def flash_build_report(build) -> dict:
     return report
 
 
+def sm_clock_max_hz() -> float:
+    """The card's highest SM clock (``nvidia-smi clocks.max.sm``), to
+    turn a time into cycles; the clock under load may be lower."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    if out.returncode != 0 or not out.stdout.strip():
+        fail(f"nvidia-smi failed: {out.stderr.strip()}")
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+def kernel_build_report(build) -> dict:
+    """Registers and spills (ptxas) of the ``cellcopy`` kernel and of
+    each ``wkv6`` instance, the CTA's shared memory, and the cluster
+    size at the data plane's shapes; fails if the static shared memory
+    of a ``cellcopy`` CTA is not what ``ops.smem_bytes`` states."""
+    import ctypes
+
+    import torch
+
+    from repro_torch.kernels.cellcopy import ops as cc
+    from repro_torch.kernels.rwkv6 import ops as wk
+    lib = build.load()
+    ptxas = _ptxas_kernels(build.BUILD_LOG.get("log", ""))
+
+    def props(mangled: str) -> dict:
+        return next((p for name, p in ptxas.items() if mangled in name), {})
+
+    out = (ctypes.c_longlong * 4)()
+    clusters = {}
+    for what, n in (("eager cell", CELL - 16), ("1 MiB", MiB),
+                    ("8 B", 8)):
+        if lib.cellcopy_plan(n, CELL, out):
+            fail("cellcopy_plan failed")
+        clusters[what] = {"CTAs": out[0], "cluster": out[1]}
+    info = {**props("cellcopy_kernel"), "threads": out[2],
+            "static_smem_bytes": out[3],
+            "ops.smem_bytes": cc.smem_bytes(8, 4096),
+            "cluster_by_shape": clusters}
+    if out[3] != cc.smem_bytes(8, 4096):
+        fail(f"cellcopy: a CTA claims {out[3]} B of shared memory, "
+             f"ops.smem_bytes says {cc.smem_bytes(8, 4096)}")
+    report = {"cellcopy_kernel": info}
+    say(f"[build] cellcopy_kernel: {json.dumps(info)}")
+    for dt, mangled in ((torch.bfloat16, "13__nv_bfloat16"),
+                        (torch.float32, "f")):
+        for n in wk.HEAD_SIZES:
+            key = f"wkv6_fwd<{str(dt)[6:]},{n}>"
+            plan = wk.launch_plan(1, 40, LONG_PROMPT, n, dt)
+            info = {**props(f"wkv6_fwdI{mangled}Li{n}E"),
+                    "threads": plan["threads"],
+                    "dynamic_smem_bytes": plan["smem_bytes"],
+                    "CTAs_at_B1_H40": plan["grid"][0] * plan["grid"][1]}
+            report[key] = info
+            say(f"[build] {key}: {json.dumps(info)}")
+    return report
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -976,6 +1113,7 @@ def main() -> None:
         f"(nvcc {build.BUILD_LOG.get('seconds', 0.0):.2f} s)")
     say(build.BUILD_LOG.get("log", ""))
     flash_build = flash_build_report(build)
+    kernel_build = kernel_build_report(build)
 
     # 2. kernels against their plain versions
     check = Check()
@@ -1039,7 +1177,7 @@ def main() -> None:
         "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
         "bound_by": "bytes", "library_ms": head["library_ms"],
         "launches_per_1MiB_message": per_msg_launches,
-        "shapes": rows}]
+        "build": kernel_build["cellcopy_kernel"], "shapes": rows}]
     for name, src, replaces, arch, c, rows_ in (
             ("flash_attention", "flash_attention.cu",
              "src/repro/kernels/flash_attention/kernel.py:75", "llama3-8b",
@@ -1060,7 +1198,8 @@ def main() -> None:
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"], "shapes": rows_,
-            **({"build": flash_build} if name == "flash_attention" else {})})
+            "build": flash_build if name == "flash_attention" else {
+                k: v for k, v in kernel_build.items() if "wkv6" in k}})
     say(json.dumps({"one_way_latency_bandwidth": lat}))
     say(json.dumps({"serving": {a: {k: m[k] for k in (
         "serve", "decode_profile", "prefill", "f32_prefill_vs_decode",

@@ -16,73 +16,280 @@
 // Bound: operations, by a little: 5 n^2 f32 flops per token and head
 // against 14 bytes per element read or written (bf16 r, k, v; f32 w and
 // o). At the path's shapes neither comes near the card's rates; what
-// sets the time is the chain of S tokens that each depend on the last.
+// sets the time is the chain of S tokens that each depend on the last:
+// each warp walks all S tokens, so the time is the instructions a warp
+// issues per token times the cycles it takes per instruction, and that
+// grows once a scheduler holds more than one warp.
 //
-// Design: the exact recurrence, one CTA per (b, h) with one thread per
-// state column j. The in-kernel loop over tokens replaces the Pallas grid
-// carry. Each thread keeps S[:, j] (n floats) in registers; r_t, k_t and
-// w_t are broadcast through shared memory, double-buffered so one barrier
-// per token suffices, and token t+1's inputs are loaded from device
-// memory while token t is computed. The sum over i runs in four partial
-// sums so that consecutive FMAs do not wait on each other. The chunked
-// form of the TPU kernel (k / P overflows f32 beyond L = 32) is not used:
-// the exact form has no such limit. Grid B*H CTAs of n threads: 160 CTAs
-// at B=4, H=40 on 132 SMs, 40 at B=1.
+// Design: the exact recurrence (the chunked form of the TPU kernel is not
+// used: its k / P overflows f32 beyond L = 32, and tensor cores in TF32
+// cannot hold rel < 1e-4). The columns j of the state are independent, so
+// each (b, h) is split over G = n / kCols CTAs of kCols columns each
+// (grid (G, H, B): 320 CTAs of one warp at B=1, H=40, n=64, at most one
+// warp per scheduler). Within a CTA each thread carries kColsPerThread
+// columns, which share its loads and conversions of r, k and w, over
+// n / kRowGroups rows, keeping that slice of S in registers; the
+// per-thread sum of a column runs in four partial sums so that
+// consecutive FMAs do not wait on each other. The inputs are staged a
+// chunk of kChunk tokens at a time: cp.async copies r, k, w (all n rows)
+// and v (this CTA's columns) of the next chunk into shared memory while
+// this chunk is computed, double-buffered, with one barrier per chunk,
+// and each token's inputs are read into registers while the token before
+// is computed. A thread's partial of o_t[j] goes to shared memory, so no
+// token waits on a reduction across threads: after the chunk's barrier
+// the row groups' partials are added in the order of a xor butterfly,
+// ((p0 + p4) + (p2 + p6)) + ((p1 + p5) + (p3 + p7)), and the outputs
+// stored as whole rows of the CTA's columns. Both layouts (BHSN and
+// BSHN) are read and written through the strides, with no transposes.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+constexpr int kCols = 8;                     // state columns per CTA
+constexpr int kColsPerThread = 2;            // columns a thread carries
+constexpr int kRowGroups = 8;                // threads per column
+constexpr int kChunk = 32;                   // tokens staged per chunk
+constexpr int kThreads = kCols / kColsPerThread * kRowGroups;
+
+// two bf16 in a u32 (little-endian) as f32: the low one, the high one
+__device__ __forceinline__ float bf_lo(uint32_t w) {
+  return __uint_as_float(w << 16);
+}
+__device__ __forceinline__ float bf_hi(uint32_t w) {
+  return __uint_as_float(w & 0xffff0000u);
+}
+
+// P consecutive values from shared memory (aligned to their size) as f32
+template <int P>
+__device__ __forceinline__ void load_rows(const float* p, float (&x)[P]) {
+  if constexpr (P % 4 == 0) {
+#pragma unroll
+    for (int q = 0; q < P; q += 4) {
+      const float4 f = *reinterpret_cast<const float4*>(p + q);
+      x[q] = f.x; x[q + 1] = f.y; x[q + 2] = f.z; x[q + 3] = f.w;
+    }
+  } else if constexpr (P == 2) {
+    const float2 f = *reinterpret_cast<const float2*>(p);
+    x[0] = f.x; x[1] = f.y;
+  } else {
+    x[0] = p[0];
+  }
+}
+
+template <int P>
+__device__ __forceinline__ void load_rows(const __nv_bfloat16* p,
+                                          float (&x)[P]) {
+  if constexpr (P % 8 == 0) {
+#pragma unroll
+    for (int q = 0; q < P; q += 8) {
+      const uint4 v = *reinterpret_cast<const uint4*>(p + q);
+      x[q] = bf_lo(v.x); x[q + 1] = bf_hi(v.x);
+      x[q + 2] = bf_lo(v.y); x[q + 3] = bf_hi(v.y);
+      x[q + 4] = bf_lo(v.z); x[q + 5] = bf_hi(v.z);
+      x[q + 6] = bf_lo(v.w); x[q + 7] = bf_hi(v.w);
+    }
+  } else if constexpr (P == 4) {
+    const uint2 v = *reinterpret_cast<const uint2*>(p);
+    x[0] = bf_lo(v.x); x[1] = bf_hi(v.x);
+    x[2] = bf_lo(v.y); x[3] = bf_hi(v.y);
+  } else if constexpr (P == 2) {
+    const uint32_t v = *reinterpret_cast<const uint32_t*>(p);
+    x[0] = bf_lo(v); x[1] = bf_hi(v);
+  } else {
+    x[0] = __bfloat162float(p[0]);
+  }
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// One chunk buffer in shared memory, in bytes: r, k, w of kChunk tokens
+// (all n rows), v of kChunk tokens (this CTA's kCols columns), and each
+// thread's partial of o for kChunk tokens.
+template <typename T, int N>
+struct Stage {
+  static constexpr int kR = 0;
+  static constexpr int kK = kR + kChunk * N * (int)sizeof(T);
+  static constexpr int kW = kK + kChunk * N * (int)sizeof(T);
+  static constexpr int kV = kW + kChunk * N * 4;
+  static constexpr int kP = kV + kChunk * kCols * (int)sizeof(T);
+  static constexpr int kBytes = kP + kChunk * kRowGroups * kCols * 4;
+};
+
+template <typename T, int N>
+constexpr int smem_bytes() {
+  return 2 * Stage<T, N>::kBytes;
+}
+
+// Copy tokens [t0, t0 + nt) of r, k, w (whole rows) and v (columns
+// [j0, j0 + kCols)) into the stage at `buf`, 16 B per cp.async.
+template <typename T, int N>
+__device__ __forceinline__ void stage_in(
+    uint8_t* buf, const T* r, const T* k, const T* v, const float* w,
+    long long in0, long long is, int j0, int t0, int nt, int tid) {
+  using St = Stage<T, N>;
+  constexpr int kRow = N * (int)sizeof(T) / 16;     // pieces per r, k row
+  constexpr int kWRow = N * 4 / 16;                 // pieces per w row
+  constexpr int kVRow = kCols * (int)sizeof(T) / 16;
+  for (int p = tid; p < nt * kRow; p += kThreads) {
+    const int tt = p / kRow, c = p % kRow;
+    const long long g = in0 + (long long)(t0 + tt) * is;
+    cp_async16(buf + St::kR + tt * N * sizeof(T) + 16 * c,
+               reinterpret_cast<const uint8_t*>(r + g) + 16 * c);
+    cp_async16(buf + St::kK + tt * N * sizeof(T) + 16 * c,
+               reinterpret_cast<const uint8_t*>(k + g) + 16 * c);
+  }
+  for (int p = tid; p < nt * kWRow; p += kThreads) {
+    const int tt = p / kWRow, c = p % kWRow;
+    const long long g = in0 + (long long)(t0 + tt) * is;
+    cp_async16(buf + St::kW + tt * N * 4 + 16 * c,
+               reinterpret_cast<const uint8_t*>(w + g) + 16 * c);
+  }
+  for (int p = tid; p < nt * kVRow; p += kThreads) {
+    const int tt = p / kVRow, c = p % kVRow;
+    const long long g = in0 + (long long)(t0 + tt) * is + j0;
+    cp_async16(buf + St::kV + tt * kCols * sizeof(T) + 16 * c,
+               reinterpret_cast<const uint8_t*>(v + g) + 16 * c);
+  }
+  cp_async_commit();
+}
+
+// Reduce and store the outputs of tokens [t0, t0 + nt): four columns of a
+// token per thread and pass, one 16 B store each. The partials of a
+// token lie as [row group][column]; the row groups' partials of a column
+// are added in the order of a xor butterfly (xor 4, 2, 1 for 8 groups).
+template <typename T, int N>
+__device__ __forceinline__ void stage_out(const uint8_t* buf, float* out,
+                                          long long os, int t0, int nt,
+                                          int tid) {
+  constexpr int kPieces = kCols / 4;
+  const float* sp = reinterpret_cast<const float*>(buf + Stage<T, N>::kP);
+  for (int p = tid; p < nt * kPieces; p += kThreads) {
+    const int tt = p / kPieces, c = 4 * (p % kPieces);
+    float4 x[kRowGroups];
+#pragma unroll
+    for (int g = 0; g < kRowGroups; ++g)
+      x[g] = *reinterpret_cast<const float4*>(
+          sp + (tt * kRowGroups + g) * kCols + c);
+#pragma unroll
+    for (int off = kRowGroups / 2; off > 0; off >>= 1) {
+#pragma unroll
+      for (int g = 0; g < off; ++g) {
+        x[g].x = x[g].x + x[g + off].x;
+        x[g].y = x[g].y + x[g + off].y;
+        x[g].z = x[g].z + x[g + off].z;
+        x[g].w = x[g].w + x[g + off].w;
+      }
+    }
+    *reinterpret_cast<float4*>(out + (long long)(t0 + tt) * os + c) = x[0];
+  }
 }
 
 template <typename T, int N>
-__global__ void __launch_bounds__(N)
+__global__ void __launch_bounds__(kThreads)
 wkv6_fwd(const T* __restrict__ r, const T* __restrict__ k,
          const T* __restrict__ v, const float* __restrict__ w,
          const float* __restrict__ u, float* __restrict__ o, int S,
          long long ib, long long ih, long long is, long long ob,
          long long oh, long long os) {
-  __shared__ float sr[2][N], sk[2][N], sw[2][N], su[N];
-  const int j = threadIdx.x;
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
-  const long long in0 = b * ib + h * ih + j;
-  float* out = o + b * ob + h * oh + j;
-  su[j] = u[h * N + j];
+  constexpr int P = N / kRowGroups;            // rows per thread
+  constexpr int Q = kColsPerThread;
+  static_assert(Q == 2, "the partials are stored as one float2");
+  using St = Stage<T, N>;
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int tid = threadIdx.x;
+  const int col = tid / kRowGroups * Q;        // first column in the CTA
+  const int rg = tid % kRowGroups;             // row group: rows rg*P + q
+  const int j0 = blockIdx.x * kCols;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const long long in0 = b * ib + h * ih;
+  float* out = o + b * ob + h * oh + j0;
 
-  float st[N];
+  float uu[P], st[Q][P];
 #pragma unroll
-  for (int i = 0; i < N; ++i) st[i] = 0.f;
-
-  float rn = to_f(r[in0]), kn = to_f(k[in0]), vn = to_f(v[in0]);
-  float wn = w[in0];
-  for (int t = 0; t < S; ++t) {
-    const int buf = t & 1;
-    sr[buf][j] = rn;
-    sk[buf][j] = kn;
-    sw[buf][j] = wn;
-    const float vj = vn;
-    // buf was last read two tokens ago, before the previous barrier
-    __syncthreads();
-    if (t + 1 < S) {
-      const long long off = in0 + (long long)(t + 1) * is;
-      rn = to_f(r[off]);
-      kn = to_f(k[off]);
-      vn = to_f(v[off]);
-      wn = w[off];
-    }
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int q = 0; q < P; ++q) {
+    uu[q] = u[h * N + rg * P + q];
 #pragma unroll
-    for (int i = 0; i < N; ++i) {
-      const float kv = sk[buf][i] * vj;
-      acc[i & 3] = fmaf(sr[buf][i], fmaf(su[i], kv, st[i]), acc[i & 3]);
-      st[i] = fmaf(st[i], sw[buf][i], kv);
-    }
-    out[(long long)t * os] = (acc[0] + acc[1]) + (acc[2] + acc[3]);
+    for (int e = 0; e < Q; ++e) st[e][q] = 0.f;
   }
+
+  const int nch = (S + kChunk - 1) / kChunk;
+  stage_in<T, N>(smem, r, k, v, w, in0, is, j0, 0, min(kChunk, S), tid);
+  for (int c = 0; c < nch; ++c) {
+    uint8_t* buf = smem + (c & 1) * St::kBytes;
+    const int t0 = c * kChunk;
+    const int nt = min(kChunk, S - t0);
+    cp_async_wait_all();
+    // chunk c is in `buf` for every thread, and every thread is done with
+    // chunk c - 1: its inputs may be overwritten, its outputs stored
+    __syncthreads();
+    if (c + 1 < nch)
+      stage_in<T, N>(smem + ((c + 1) & 1) * St::kBytes, r, k, v, w, in0, is,
+                     j0, t0 + kChunk, min(kChunk, S - t0 - kChunk), tid);
+    if (c > 0)
+      stage_out<T, N>(smem + ((c - 1) & 1) * St::kBytes, out, os,
+                      t0 - kChunk, kChunk, tid);
+    const T* sr = reinterpret_cast<const T*>(buf + St::kR) + rg * P;
+    const T* sk = reinterpret_cast<const T*>(buf + St::kK) + rg * P;
+    const float* sw = reinterpret_cast<const float*>(buf + St::kW) + rg * P;
+    const T* sv = reinterpret_cast<const T*>(buf + St::kV) + col;
+    // this thread's partials: token tt at [tt][rg][col .. col + Q)
+    float* sp = reinterpret_cast<float*>(buf + St::kP) + rg * kCols + col;
+    // token tt's inputs are loaded from shared memory while token tt - 1
+    // is computed: a load is never issued behind a store of the partials
+    float rr[P], kk[P], ww[P], vv[Q];
+    load_rows<P>(sr, rr);
+    load_rows<P>(sk, kk);
+    load_rows<P>(sw, ww);
+    load_rows<Q>(sv, vv);
+#pragma unroll 2
+    for (int tt = 0; tt < nt; ++tt) {
+      const int tn = min(tt + 1, nt - 1);
+      float rn[P], kn[P], wn[P], vn[Q];
+      load_rows<P>(sr + tn * N, rn);
+      load_rows<P>(sk + tn * N, kn);
+      load_rows<P>(sw + tn * N, wn);
+      load_rows<Q>(sv + tn * kCols, vn);
+      float y[Q];
+#pragma unroll
+      for (int e = 0; e < Q; ++e) {
+        float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int q = 0; q < P; ++q) {
+          const float kv = kk[q] * vv[e];
+          acc[q & 3] = fmaf(rr[q], fmaf(uu[q], kv, st[e][q]), acc[q & 3]);
+          st[e][q] = fmaf(st[e][q], ww[q], kv);
+        }
+        y[e] = (acc[0] + acc[1]) + (acc[2] + acc[3]);
+      }
+      *reinterpret_cast<float2*>(sp + tt * kRowGroups * kCols) =
+          make_float2(y[0], y[1]);
+#pragma unroll
+      for (int q = 0; q < P; ++q) {
+        rr[q] = rn[q];
+        kk[q] = kn[q];
+        ww[q] = wn[q];
+      }
+#pragma unroll
+      for (int e = 0; e < Q; ++e) vv[e] = vn[e];
+    }
+  }
+  __syncthreads();
+  const int tl = (nch - 1) * kChunk;
+  stage_out<T, N>(smem + ((nch - 1) & 1) * St::kBytes, out, os, tl, S - tl,
+                  tid);
 }
 
 template <typename T, int N>
@@ -91,8 +298,12 @@ cudaError_t launch(const void* r, const void* k, const void* v,
                    int S, long long ib, long long ih, long long is,
                    long long ob, long long oh, long long os,
                    cudaStream_t stream) {
-  const dim3 grid(H, B);
-  wkv6_fwd<T, N><<<grid, N, 0, stream>>>(
+  constexpr int smem = smem_bytes<T, N>();
+  cudaError_t e = cudaFuncSetAttribute(
+      wkv6_fwd<T, N>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid(N / kCols, H, B);
+  wkv6_fwd<T, N><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(r), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const float*>(w),
       static_cast<const float*>(u), static_cast<float*>(o), S, ib, ih, is,
@@ -124,19 +335,30 @@ cudaError_t by_size(int N, const void* r, const void* k, const void* v,
   }
 }
 
+template <typename T>
+int smem_by_size(int N) {
+  switch (N) {
+    case 8: return smem_bytes<T, 8>();
+    case 16: return smem_bytes<T, 16>();
+    case 32: return smem_bytes<T, 32>();
+    case 64: return smem_bytes<T, 64>();
+    default: return -1;
+  }
+}
+
 }  // namespace
 
 // r, k, v (dtype 0: float32, 1: bfloat16) and w (float32): (B, H, S, N)
 // at the shared strides (ib, ih, is); u: (H, N) float32, contiguous; o:
 // (B, H, S, N) float32 at strides (ob, oh, os); the last dimension
-// contiguous everywhere. Launches on `stream` and returns
-// cudaGetLastError() of the launch.
+// contiguous everywhere, every pointer and every stride in bytes a
+// multiple of 16. Launches on `stream` and returns the launch's error.
 extern "C" int wkv6_fwd(const void* r, const void* k, const void* v,
                         const void* w, const void* u, void* o, int dtype,
                         int B, int H, int S, int N, long long ib,
                         long long ih, long long is, long long ob,
                         long long oh, long long os, void* stream) {
-  if (B <= 0 || H <= 0 || S <= 0 || B > 65535)
+  if (B <= 0 || H <= 0 || S <= 0 || B > 65535 || H > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
@@ -149,4 +371,18 @@ extern "C" int wkv6_fwd(const void* r, const void* k, const void* v,
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// The launch wkv6_fwd makes for (dtype, B, H, N): out = {grid x, grid y,
+// grid z, threads per CTA, dynamic shared memory in bytes, tokens per
+// chunk, columns per CTA, threads per column}. Returns a CUDA error code.
+extern "C" int wkv6_plan(int dtype, int B, int H, int N, int* out) {
+  const int smem = dtype == 0   ? smem_by_size<float>(N)
+                   : dtype == 1 ? smem_by_size<__nv_bfloat16>(N)
+                                : -1;
+  if (smem < 0) return (int)cudaErrorInvalidValue;
+  const int plan[8] = {N / kCols, H,     B,     kThreads,
+                       smem,      kChunk, kCols, kRowGroups};
+  for (int i = 0; i < 8; ++i) out[i] = plan[i];
+  return 0;
 }

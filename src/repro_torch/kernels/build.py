@@ -108,6 +108,8 @@ def load() -> ctypes.CDLL:
             vp, ll = ctypes.c_void_p, ctypes.c_longlong
             lib.cellcopy_bytes.argtypes = [vp, vp, ll, ll, ll, vp, vp]
             lib.cellcopy_bytes.restype = ctypes.c_int
+            lib.cellcopy_plan.argtypes = [ll, ll, ctypes.POINTER(ll)]
+            lib.cellcopy_plan.restype = ctypes.c_int
             lib.pool_host_register.argtypes = [vp, ll]
             lib.pool_host_register.restype = ctypes.c_int
             lib.pool_host_unregister.argtypes = [vp]
@@ -122,5 +124,7 @@ def load() -> ctypes.CDLL:
             lib.flash_attention_smem.restype = ctypes.c_int
             lib.wkv6_fwd.argtypes = [vp] * 6 + [i] * 5 + [ll] * 6 + [vp]
             lib.wkv6_fwd.restype = ctypes.c_int
+            lib.wkv6_plan.argtypes = [i] * 4 + [ctypes.POINTER(i)]
+            lib.wkv6_plan.restype = ctypes.c_int
             _lib = lib
         return _lib

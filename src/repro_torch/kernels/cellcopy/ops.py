@@ -28,16 +28,69 @@ from repro_torch.kernels.cellcopy import ref
 
 LANE = 128
 THREADS = 256                    # CTA size of the kernel
+VECTOR = 16                      # bytes a thread moves per load and store
+SLICE_BYTES = THREADS * VECTOR   # a cell's bytes per CTA of its cluster
+MAX_CLUSTER = 8                  # the portable thread-block cluster size
 DEFAULT_CELL_BYTES = 16384       # data-plane checksum cell (16 KiB)
 LAUNCHES = 0
 
 
 def smem_bytes(block_cells: int, words: int) -> int:
-    """Shared memory one CTA claims: one u32 partial sum per warp for the
-    block reduce. Cells stream through registers, so it depends on
-    neither ``block_cells`` nor ``words`` (the TPU kernel's VMEM working
-    set did)."""
-    return (THREADS // 32) * 4
+    """Static shared memory one CTA claims: one u32 partial sum per warp
+    for the CTA's reduce, and one u32 per CTA of a cluster, of which rank
+    0's copy receives every CTA's partial through distributed shared
+    memory. Cells stream through registers, so it depends on neither
+    ``block_cells`` nor ``words`` (the TPU kernel's VMEM working set
+    did)."""
+    return (THREADS // 32) * 4 + MAX_CLUSTER * 4
+
+
+def cluster_size(nbytes: int, cell_bytes: int) -> int:
+    """CTAs per cell, all in one cluster: one per ``SLICE_BYTES`` of the
+    longest cell of the launch, 1 to ``MAX_CLUSTER``."""
+    longest = min(cell_bytes, nbytes)
+    return max(1, min(MAX_CLUSTER, -(-longest // SLICE_BYTES)))
+
+
+def launch_plan(nbytes: int, cell_bytes: int, dst_mod16: int = 0,
+                src_mod16: int = 0) -> dict:
+    """The kernel's launch and work split for ``nbytes`` from a source at
+    ``src_mod16`` to a destination at ``dst_mod16`` (mod 16), as
+    ``csrc/cellcopy.cu`` computes them. Returns ``grid`` (CTAs),
+    ``cluster`` (CTAs per cell), ``threads``, ``smem_bytes`` and
+    ``ctas``: per CTA its ``cell``, its ``rank`` in the cluster, the
+    message byte ranges it copies (``head``, ``body`` and ``tail``, each
+    ``(lo, hi)`` or None) and the source's misalignment ``shift`` (0: the
+    aligned path, else the funnel-shift path). A cell's 16 B vectors to
+    aligned destinations are cut into ``cluster`` slices; rank 0 also
+    copies the head bytes before the first aligned destination, the last
+    rank the tail after the last whole vector."""
+    if nbytes <= 0 or cell_bytes <= 0 or cell_bytes % 4:
+        raise ValueError(f"launch_plan: nbytes={nbytes} "
+                         f"cell_bytes={cell_bytes}")
+    n_cells = -(-nbytes // cell_bytes)
+    k = cluster_size(nbytes, cell_bytes)
+    ctas = []
+    for c in range(n_cells):
+        s = c * cell_bytes
+        ln = min(cell_bytes, nbytes - s)
+        head = min((VECTOR - (dst_mod16 + s) % VECTOR) % VECTOR, ln)
+        nvec = (ln - head) // VECTOR
+        tail0 = head + VECTOR * nvec
+        per = -(-nvec // k)
+        shift = (src_mod16 + s + head) % VECTOR
+        for rank in range(k):
+            v0 = min(rank * per, nvec)
+            v1 = min(v0 + per, nvec)
+            ctas.append({
+                "cell": c, "rank": rank, "shift": shift,
+                "head": (s, s + head) if rank == 0 and head else None,
+                "body": ((s + head + VECTOR * v0, s + head + VECTOR * v1)
+                         if v1 > v0 else None),
+                "tail": ((s + tail0, s + ln)
+                         if rank == k - 1 and ln > tail0 else None)})
+    return {"grid": n_cells * k, "cluster": k, "threads": THREADS,
+            "smem_bytes": smem_bytes(1, LANE), "ctas": ctas}
 
 
 _SCRATCH: dict = {}
@@ -75,7 +128,8 @@ def copy_bytes(dst_ptr: int, src_ptr: int, nbytes: int, cell_bytes: int,
     go to a scratch tensor reused across launches: the data plane's wire
     format has no field for them, but the kernel does the same work on
     every path. Runs on PyTorch's current stream and does not
-    synchronise."""
+    synchronise. The CTA layout follows the bytes (``launch_plan``);
+    ``block_cells`` is only checked."""
     global LAUNCHES
     if nbytes < 0 or cell_bytes <= 0 or cell_bytes % 4 or block_cells < 1:
         raise ValueError(f"copy_bytes: bad nbytes={nbytes} "

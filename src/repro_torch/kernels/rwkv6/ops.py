@@ -16,7 +16,29 @@ from repro_torch.kernels.rwkv6 import ref
 
 HEAD_SIZES = (8, 16, 32, 64)     # template instances of the kernel
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+COLS = 8                         # state columns per CTA
+COLS_PER_THREAD = 2              # columns a thread carries
+ROW_GROUPS = 8                   # threads per column, n / 8 rows each
+CHUNK = 32                       # tokens staged in shared memory at a time
 LAUNCHES = 0
+
+
+def launch_plan(b: int, h: int, s: int, n: int, dtype: torch.dtype) -> dict:
+    """The launch ``csrc/wkv6.cu`` makes: ``grid`` (column groups, heads,
+    batch), ``threads`` (``COLS / COLS_PER_THREAD`` x ``ROW_GROUPS``),
+    ``smem_bytes`` (two chunk buffers: r, k and w of ``CHUNK`` tokens at
+    all n rows, v at the CTA's columns, and an f32 partial of o per row
+    group and column), ``chunks`` (``(t0, t1)`` token ranges, the last
+    one ragged) and ``rows`` (each row group's rows)."""
+    es = torch.empty(0, dtype=dtype).element_size()
+    stage = CHUNK * (n * (2 * es + 4) + COLS * es + COLS * ROW_GROUPS * 4)
+    return {"grid": (n // COLS, h, b),
+            "threads": COLS // COLS_PER_THREAD * ROW_GROUPS,
+            "smem_bytes": 2 * stage, "chunk": CHUNK, "cols": COLS,
+            "row_groups": ROW_GROUPS,
+            "chunks": [(t, min(t + CHUNK, s)) for t in range(0, s, CHUNK)],
+            "rows": [range(g * n // ROW_GROUPS, (g + 1) * n // ROW_GROUPS)
+                     for g in range(ROW_GROUPS)]}
 
 
 def _check(r, k, v, w, u, heads: int) -> None:
@@ -39,12 +61,17 @@ def _check(r, k, v, w, u, heads: int) -> None:
         raise ValueError(f"wkv6: head size {n} not in {HEAD_SIZES}")
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _launch(r, k, v, w, u, heads: int) -> torch.Tensor:
     """Run the kernel in the layout whose head axis is ``heads`` (1:
     BHSN, 2: BSHN); the f32 output has r's shape and layout."""
     global LAUNCHES
     from repro_torch.kernels.build import load
-    r, k, v, w, u = (a.contiguous() for a in (r, k, v, w, u))
+    # contiguous, and 16-byte aligned for the kernel's cp.async copies
+    r, k, v, w, u = (_aligned(a.contiguous()) for a in (r, k, v, w, u))
     out = torch.empty(r.shape, dtype=torch.float32, device=r.device)
     seq = 3 - heads
     b, h, s, n = r.shape[0], r.shape[heads], r.shape[seq], r.shape[3]
