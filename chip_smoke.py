@@ -8,9 +8,12 @@ Phases, each of which fails the run on error:
 1. build   nvcc builds the kernel library from ``src/repro_torch/csrc``
            (one nvcc per source, all started together); prints each
            kernel's registers and spills (from ptxas), each flash
-           kernel's shared memory and, where ``cuobjdump`` exists, the
-           HGMMA (wgmma) instructions of the bf16 kernels, failing if
-           there are none; ``cellcopy``'s cluster size per shape and its
+           kernel's threads, tiles and shared memory (the library's
+           ``flash_attention_plan``, whose numbers the launch takes,
+           held to ``ops.launch_plan``) and,
+           where ``cuobjdump`` exists, the HGMMA (wgmma) instructions of
+           every flash instance, bf16 and f32, failing if one has
+           none; ``cellcopy``'s cluster size per shape and its
            shared memory (failing unless ``ops.smem_bytes`` states it);
            ``wkv6``'s CTAs and dynamic shared memory per instance.
 2. kernel  each kernel against its plain PyTorch version on the card:
@@ -23,12 +26,15 @@ Phases, each of which fails the run on error:
            64 KiB cells, each launch as ``ops.launch_plan`` gives it; one
            corrupted cell that ``verify`` must catch); ``flash_attention``
            on the cases of ``tests/test_kernels.py``, at the model
-           path's shapes and at the bf16 kernel's edges (D = 32, 64 and
-           128, ragged S, GQA groups 1 to 8, causal or not), f32 within
-           1e-5 and bf16 within 3e-2 (absolute plus relative, as
-           ``assert_allclose``), in both layouts; bf16 also within a
-           relative L2 error of ``FLASH_L2`` (scaled to the output's own
-           size, which at S = 4096 is about that 3e-2); ``wkv6``
+           path's shapes and at both kernels' edges (D = 32, 64 and
+           128, ragged S, S = 1, GQA groups 1 to 8, causal or not), f32
+           within 1e-5 and bf16 within 3e-2 (absolute plus relative, as
+           ``assert_allclose``), in both layouts, each launch and each
+           CTA's (batch, head, query block, K/V tiles) as
+           ``ops.launch_plan`` gives them, the errors printed per dtype;
+           bf16 also within a relative L2 error of ``FLASH_L2`` (scaled
+           to the output's own size, which at S = 4096 is about that
+           3e-2); ``wkv6``
            likewise, within rel < 1e-4, at the edges of its 32-token
            chunks too, each launch as ``ops.launch_plan`` gives it.
 3. main    ``run_processes(2, ..., pool_bytes=512 MiB, cell_size=16 KiB,
@@ -45,12 +51,14 @@ Phases, each of which fails the run on error:
            same prompts and on one 4096-token prompt, each prefill
            launching its kernel once per layer; one decode step's wall
            and device time (``torch.profiler``); then, in f32 compute
-           with TF32 off, prefill's last-position logits against the
-           teacher-forced decode's (which runs no kernel) within
-           1e-3 * max|logit|.
+           with TF32 off, prefill (timed, twice) and its last-position
+           logits against the teacher-forced decode's (which runs no
+           kernel) within 1e-3 * max|logit|.
 5. report  the ``kernels`` JSON line (times at the main paths' shapes,
            ``cellcopy``'s beside ``Tensor.copy_``, ``wkv6``'s in cycles
-           per token, and the f32 flash kernel at the long prompt),
+           per token, and the f32 flash kernel at the parity prefill's
+           shape and at the long prompt, beside its FMA and split-TF32
+           bounds),
            one-way latency and bandwidth per path and size, the serving
            numbers per model, and the card's name and power limit.
 
@@ -85,10 +93,10 @@ PERSIST_BYTES, PERSIST_ROUNDS = MiB, 10
 
 # peak rates of one H100 SXM (NVIDIA's data sheet): HBM3, and the host
 # link, PCIe 5.0 x16 (32 GT/s x 16 lanes, 128b/130b) in one direction;
-# dense bf16 on the tensor cores and f32 outside them
+# dense bf16 and TF32 on the tensor cores and f32 outside them
 HBM_BPS = 3.35e12
 PCIE_BPS = 32e9 * 16 * 128 / 130 / 8
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "tf32": 495e12}
 
 # the model path: published configs, serve_batch's shape, one long prompt
 MODELS = ("llama3-8b", "rwkv6-3b")
@@ -491,9 +499,14 @@ class FloatCheck:
         self.max_rel_err = 0.0
         self.max_l2_err = 0.0
         self.max_l2_case = ""
+        # per kind of case (the flash dtypes): cases, max abs err, max
+        # rel err (max|got - want| / max|want|) and the largest share of
+        # the allclose bound an element used (|got - want| / (tol + tol
+        # |want|), at most 1 on a pass)
+        self.by_kind: dict = {}
 
     def close(self, what: str, got, want, tol: float,
-              l2: float | None = None) -> None:
+              l2: float | None = None, kind: str | None = None) -> None:
         """|got - want| <= tol + tol * |want| everywhere (assert_allclose)
         and, with ``l2``, ||got - want||_2 / ||want||_2 <= l2."""
         self.cases += 1
@@ -506,6 +519,17 @@ class FloatCheck:
         allclose = bool(((g - w).abs() <= tol + tol * w.abs()).all())
         rel2 = float((g - w).norm() / w.norm().clamp_min(1e-30))
         self.max_abs_err = max(self.max_abs_err, err)
+        if kind is not None:
+            k = self.by_kind.setdefault(kind, {
+                "cases": 0, "max_abs_err": 0.0, "max_rel_err": 0.0,
+                "bound_use": 0.0, "worst_case": ""})
+            k["cases"] += 1
+            k["max_abs_err"] = max(k["max_abs_err"], err)
+            k["max_rel_err"] = max(k["max_rel_err"], err / max(
+                float(w.abs().max()), 1e-30))
+            use = float(((g - w).abs() / (tol + tol * w.abs())).max())
+            if use >= k["bound_use"]:
+                k["bound_use"], k["worst_case"] = use, what
         if l2 is not None and rel2 >= self.max_l2_err:
             self.max_l2_err, self.max_l2_case = rel2, what
         if not allclose or (l2 is not None and rel2 > l2):
@@ -530,8 +554,9 @@ class FloatCheck:
 
 # (b, h, kv, s, d, causal, dtype): tests/test_kernels.py's sweep, ragged
 # lengths, the model path's shapes (serve prompts; one long prompt), and
-# the bf16 kernel's edges: D = 32 and 64, S not a multiple of its 128-row
-# tiles, GQA groups 1 and 8, causal and not
+# the kernels' edges: D = 32 and 64, S not a multiple of the bf16
+# kernel's 128-row tiles nor of the f32 kernel's 64-row blocks and
+# 32-key stages, S = 1, GQA groups 1 to 8, causal and not
 FLASH_CASES = [
     (2, 4, 4, 256, 64, True, "float32"),
     (1, 8, 2, 256, 128, True, "bfloat16"),
@@ -547,7 +572,12 @@ FLASH_CASES = [
     (1, 16, 2, 200, 128, True, "bfloat16"),
     (2, 8, 1, 256, 128, False, "bfloat16"),
     (1, 4, 4, 200, 32, True, "bfloat16"),
-    (1, 4, 1, 333, 64, False, "bfloat16")]
+    (1, 4, 1, 333, 64, False, "bfloat16"),
+    (1, 16, 2, 200, 128, True, "float32"),
+    (2, 8, 2, 1, 128, True, "float32"),
+    (2, 8, 1, 256, 128, False, "float32"),
+    (1, 4, 4, 77, 32, False, "float32"),
+    (1, 4, 1, 333, 64, True, "float32")]
 # bf16 outputs: bound on ||got - want||_2 / ||want||_2, scaled to the
 # output where 3e-2 is not: at S = 4096 an output is ~0.02, and a 2 %
 # error in every row (a softmax scale off by 2 %) stays inside 3e-2.
@@ -609,6 +639,42 @@ def _wkv6_plan(b, h, s, n, dtype) -> dict:
     return plan
 
 
+def _flash_plan(b, h, kv, s, d, causal, dtype) -> dict:
+    """The launch the library makes for the case (``flash_attention_plan``,
+    whose numbers the launch itself takes) and each CTA's work as the
+    kernels compute it (``flash_attention_order``), checked against
+    ``ops.launch_plan`` (whose tiles and order the CPU tests use)."""
+    import ctypes
+
+    import torch
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import ops
+    lib = build.load()
+    out = (ctypes.c_int * 8)()
+    dt = getattr(torch, dtype)
+    rc = lib.flash_attention_plan(ops.DTYPES[dt], b, h, s, d, out)
+    plan = ops.launch_plan(b, h, kv, s, d, dt, causal)
+    want = [plan["grid"], plan["threads"], plan["smem_bytes"],
+            plan["block_q"], plan["block_k"], plan["stages"],
+            plan["warpgroups"]["load"], plan["warpgroups"]["math"]]
+    what = f"flash_attention launch of {(b, h, kv, s, d, causal, dtype)}"
+    if rc or list(out) != want:
+        fail(f"{what}: library {list(out)} (rc {rc}), launch_plan {want}")
+    work = (ctypes.c_int * (4 * plan["grid"]))()
+    rc = lib.flash_attention_order(ops.DTYPES[dt], b, h, s, d, int(causal),
+                                   work)
+    got = [tuple(work[4 * i:4 * i + 4]) for i in range(plan["grid"])]
+    want = [(bi, hi, qi, plan["kv_tiles"][qi])
+            for bi, hi, qi in plan["order"]]
+    if rc or got != want:
+        first = [(i, x, y) for i, (x, y) in enumerate(zip(got, want))
+                 if x != y][:1]
+        fail(f"{what}: (CTA, library's work, launch_plan's) {first} "
+             f"(rc {rc})")
+    return plan
+
+
 def model_kernel_phase(fcheck: FloatCheck, wcheck: FloatCheck) -> None:
     import torch
 
@@ -618,16 +684,18 @@ def model_kernel_phase(fcheck: FloatCheck, wcheck: FloatCheck) -> None:
     from repro_torch.kernels.rwkv6 import ref as wk_ref
     g = torch.Generator(device="cuda").manual_seed(11)
     for b, h, kv, s, d, causal, dt in FLASH_CASES:
+        _flash_plan(b, h, kv, s, d, causal, dt)
         q, k, v = _flash_inputs(b, h, kv, s, d, dt, g)
         tol, l2 = (3e-2, FLASH_L2) if dt == "bfloat16" else (1e-5, None)
         want = fa_ref.attention_ref(q, k, v, causal=causal)
         what = f"({b},{h},{kv},{s},{d}) causal={causal} {dt}"
         fcheck.close(what, fa.flash_attention(q, k, v, causal=causal),
-                     want, tol, l2)
+                     want, tol, l2, kind=dt)
         got = fa.flash_attention_bshd(
             *(t.transpose(1, 2).contiguous() for t in (q, k, v)),
             causal=causal)
-        fcheck.close(what + " bshd", got.transpose(1, 2), want, tol, l2)
+        fcheck.close(what + " bshd", got.transpose(1, 2), want, tol, l2,
+                     kind=dt)
         del q, k, v, want, got
     for b, h, s, n, dt in WKV6_CASES:
         _wkv6_plan(b, h, s, n, dt)
@@ -668,8 +736,9 @@ def _bound_ms(flops: float, nbytes: float, dtype: str) -> tuple[float, str]:
 
 def model_kernel_timings() -> tuple[list[dict], list[dict]]:
     """Kernel, plain version and library call at the model path's shapes
-    (bf16, as the served models call them; and the f32 kernel at the
-    long prompt)."""
+    (bf16, as the served models call them; f32 at the parity prefill's
+    shape and at the long prompt, bound by three TF32 products per flop,
+    the kernel's method, with the FMA pipes' bound beside it)."""
     import torch
     import torch.nn.functional as F
 
@@ -681,8 +750,10 @@ def model_kernel_timings() -> tuple[list[dict], list[dict]]:
     flash = []
     for b, s, dt in ((4, SERVE["prompt_len"], "bfloat16"),
                      (1, LONG_PROMPT, "bfloat16"),
+                     (4, SERVE["prompt_len"], "float32"),
                      (1, LONG_PROMPT, "float32")):
         shape = (b, 32, 8, s, 128)
+        plan = _flash_plan(*shape, True, dt)
         q, k, v = _flash_inputs(*shape, dt, g)
         reps = 20 if s <= 1024 else 5
         kern, kern_issued = _time_ms(
@@ -691,13 +762,20 @@ def model_kernel_timings() -> tuple[list[dict], list[dict]]:
         lib, _ = _time_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=True, enable_gqa=True), reps, 2)
         flops, nbytes = _flash_work(*shape, dt)
-        bound, by = _bound_ms(flops, nbytes, dt)
+        if dt == "float32":
+            # the kernel's own bound: three TF32 tensor-core products per
+            # flop; the FMA pipes' bound beside it
+            bound, by = _bound_ms(3 * flops, nbytes, "tf32")
+            fma = dict(zip(("fma_bound_ms", "fma_bound_by"),
+                           _bound_ms(flops, nbytes, dt)))
+        else:
+            (bound, by), fma = _bound_ms(flops, nbytes, dt), {}
         kind = "bf16" if dt == "bfloat16" else "f32"
-        flash.append({"shape": f"B={b} H=32 KV=8 S={s} D=128 {kind} causal",
-                      "ms": kern, "issued_ms": kern_issued,
-                      "plain_ms": plain, "library_ms": lib,
-                      "bound_ms": bound, "bound_by": by,
-                      "TFLOPs": flops / kern / 1e9})
+        flash.append({
+            "shape": f"B={b} H=32 KV=8 S={s} D=128 {kind} causal",
+            "ms": kern, "issued_ms": kern_issued, "plain_ms": plain,
+            "library_ms": lib, "bound_ms": bound, "bound_by": by, **fma,
+            "TFLOPs": flops / kern / 1e9, "CTAs": plan["grid"]})
         del q, k, v
     wkv = []
     clock_hz = sm_clock_max_hz()
@@ -844,7 +922,8 @@ def model_phase(arch: str) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     c32 = dataclasses.replace(cfg, compute_dtype="float32")
-    par, _ = prefill(c32, prompts, "f32 prefill")
+    _, f32_first = prefill(c32, prompts, "f32 prefill")
+    par, f32_warm = prefill(c32, prompts, "f32 prefill")
     state = lm.decode_state_init(c32, SERVE["batch"], SERVE["prompt_len"],
                                  device="cuda")
     for i in range(SERVE["prompt_len"]):
@@ -857,13 +936,15 @@ def model_phase(arch: str) -> dict:
     res["f32_prefill_vs_decode"] = {"max_abs_diff": diff,
                                     "max_abs_logit": scale,
                                     "ratio": diff / scale,
-                                    "tol": LOGIT_TOL}
+                                    "tol": LOGIT_TOL,
+                                    "prefill_4x128_s": f32_warm,
+                                    "prefill_4x128_first_s": f32_first}
     if not diff <= LOGIT_TOL * scale:
         fail(f"{arch}: f32 prefill and teacher-forced decode differ by "
              f"{diff:.3g} (max |logit| {scale:.3g})")
     res["launches"] = {"cellcopy": cc.LAUNCHES, "flash_attention":
                        fa.LAUNCHES, "wkv6": wk.LAUNCHES}
-    if kern.LAUNCHES != 4 * cfg.n_layers or cc.LAUNCHES:
+    if kern.LAUNCHES != 5 * cfg.n_layers or cc.LAUNCHES:
         fail(f"{arch}: launches on the model path {res['launches']}")
     del params, state
     torch.cuda.empty_cache()
@@ -918,25 +999,28 @@ def _hgmma_counts(lib) -> dict | None:
 
 
 def flash_build_report(build) -> dict:
-    """Registers, spills and dynamic shared memory of each flash kernel
-    instance, and the HGMMA instructions of the bf16 (wgmma) ones; fails
-    if a bf16 instance has none."""
-    lib = build.load()
+    """Registers, spills, threads and dynamic shared memory of each flash
+    kernel instance (the library's plan, held to ``ops.launch_plan``), and
+    its HGMMA (wgmma) instructions; fails if an instance has none."""
+    build.load()
     ptxas = _ptxas_kernels(build.BUILD_LOG.get("log", ""))
     hgmma = _hgmma_counts(build.lib_path())
     report = {}
-    for dtype, kind in ((1, "bf16"), (0, "f32")):
+    for kind, dt in (("bf16", "bfloat16"), ("f32", "float32")):
         for d in (32, 64, 128):
             key = f"flash_fwd_{kind}<{d}>"
             mangled = f"flash_fwd_{kind}ILi{d}E"
-            info = {"smem_bytes": lib.flash_attention_smem(dtype, d)}
+            plan = _flash_plan(1, 32, 8, LONG_PROMPT, d, True, dt)
+            info = {"threads": plan["threads"],
+                    "smem_bytes": plan["smem_bytes"],
+                    "block_q": plan["block_q"], "block_k": plan["block_k"]}
             for name, props in ptxas.items():
                 if mangled in name:
                     info.update(props)
             if hgmma is not None:
                 info["hgmma"] = sum(n for name, n in hgmma.items()
                                     if mangled in name)
-                if kind == "bf16" and not info["hgmma"]:
+                if not info["hgmma"]:
                     fail(f"{key}: no HGMMA instruction in its SASS")
             report[key] = info
             say(f"[build] {key}: {json.dumps(info)}")
@@ -1134,6 +1218,11 @@ def main() -> None:
                 + (f", max relative L2 err {c.max_l2_err:.3g} at "
                    f"{c.max_l2_case} (bf16, bound {FLASH_L2:.3g})"
                    if c is fcheck else ""))
+        for kind, k in fcheck.by_kind.items():
+            say(f"[kernel] flash_attention {kind}: {k['cases']} "
+                f"comparisons, max abs err {k['max_abs_err']:.3g}, max rel "
+                f"err {k['max_rel_err']:.3g}, largest share of the allclose "
+                f"bound {k['bound_use']:.3g} at {k['worst_case']}")
         say(f"[kernel] model kernels {time.perf_counter() - t0:.1f} s")
 
         # 3. the message plane: counts to 0 just before, read just after
@@ -1193,7 +1282,8 @@ def main() -> None:
             "launches": models[arch]["launches"][name],
             "mismatches": c.mismatches, "max_abs_err": c.max_abs_err,
             "max_rel_err": c.max_rel_err,
-            **({"max_l2_err": c.max_l2_err} if c is fcheck else {}),
+            **({"max_l2_err": c.max_l2_err, "by_dtype": c.by_kind}
+               if c is fcheck else {}),
             "shape": head["shape"],
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],

@@ -17,10 +17,14 @@
 // (query, key) pair and reads each K/V tile once from device memory; at
 // the path's shapes (D = 128) that is far above the card's
 // operations-per-byte line, so the arithmetic sets the pace: the tensor
-// cores for bf16, the FMA pipes for f32.
+// cores for bf16 (989 TFLOP/s); for f32 the function's flops over the FMA
+// pipes' 67 TFLOP/s (2.05 ms at B=1 H=32 S=4096 causal), and for the
+// split-TF32 kernel below three times those flops over the 495 TFLOP/s of
+// TF32 (0.833 ms there).
 //
 // Two kernels, chosen by dtype (dispatch, not fallback: each dtype has
-// exactly one kernel, and a launch that cannot run returns an error):
+// exactly one kernel, and a launch that cannot run returns an error); both
+// are sm_90a only:
 //
 // bf16: `flash_fwd_bf16`, built for the tensor cores. One CTA of three
 // warpgroups per (128-query block, head, batch). Warpgroup 0 is the
@@ -48,17 +52,57 @@
 // kernel: softmax overlapped with the next tile's Q K^T inside a
 // warpgroup, ping-pong scheduling of the two consumers, persistent CTAs.
 //
-// f32: `flash_fwd_f32`, IEEE FMA, never TF32 (f32 inputs hold 1e-5).
-// One CTA of 256 threads per (64-query block, head, batch); Q and each
-// 64-row K/V tile staged in shared memory as f32 (rows padded to D+1),
-// the scores' 64x64 tile spread 4x4 per thread, p through shared memory
-// to the P.V product, m, l and the accumulator in registers.
+// f32: `flash_fwd_f32`, on the tensor cores in three TF32 products (the
+// split of CUTLASS's OpMultiplyAddFastF32): each f32 operand x becomes
+// hi = rna_tf32(x) and lo = rna_tf32(x - hi), so x = hi + lo to within
+// 2^-22 |x|, and each product is a_hi b_hi + a_hi b_lo + a_lo b_hi, the
+// dropped a_lo b_lo being another 2^-22 -- the order of an f32 FMA sum
+// over D = 128. The tensor cores add into an f32 accumulator without
+// IEEE rounding (they truncate; over all 4096 keys of one accumulator
+// P V erred 14x an FMA sum on the card), so the kernel bounds how many
+// such adds any value takes: S as hi.hi (D / 8 adds) in one accumulator
+// and the small hi.lo + lo.hi in another, joined by one IEEE add; P V of
+// each 32-key tile in a fresh accumulator (12 adds) added to the running
+// output in IEEE f32. f32 outputs hold 1e-5 of the plain version.
+// One CTA of two warpgroups per (64-query block, head, batch), 197 KB of
+// shared memory at D = 128 (Q hi and lo 64 KB; two stages of K hi, K lo,
+// V^T hi and V^T lo, 64 KB each), so one CTA per SM. 64 KB more for a
+// second math warpgroup's Q, or the 64 registers Q hi would take in
+// registers beside the fresh P V accumulator, do not fit.
+// - A splitting warpgroup loads each 32-key K and V tile with 16-byte
+//   loads into one of two register sets (tile t + 1's loads are issued
+//   before tile t is split, so they land while it splits; the values
+//   must pass through registers to be split, so there is no landing
+//   buffer), waits for the stage to drain, splits and stores K as it
+//   lies and V transposed -- tf32 wgmma reads only K-major operands --
+//   with each group of 8 keys permuted (keys 2i, 2i + 1 to columns i,
+//   i + 4) so that the S accumulator's registers are P's A fragment as
+//   they lie. A warp's V load takes 8 keys x 64 B (coalesced; its
+//   transposed stores then meet 2-way bank conflicts). A full and an
+//   empty mbarrier per stage.
+// - A math warpgroup splits its Q block once, then per tile runs
+//   S = Q K^T as 3 x D / 8 wgmma m64n32k8 from shared memory (their
+//   descriptors rebuilt per tile, not held in registers), the online
+//   softmax on the accumulator (exp2 with the scale folded with log2 e,
+//   as bf16), splits p in registers and runs P V as 12 wgmma m64nDk8
+//   with A from those registers. m, l and the output stay in registers.
+// Against the FMA kernel it replaces: no scalar shared loads (wgmma reads
+// the swizzled tiles itself), loading and splitting overlap the math
+// through the two stages, p never goes through shared memory, the four
+// math warps keep asynchronous wgmma in flight instead of small register
+// tiles, the longest causal blocks go first, and the tensor cores'
+// 495 TFLOP/s replace the FMA pipes' 67. The causal skip is the loop's
+// bound; only the tiles on the diagonal and the ragged one are masked.
+// Rows and keys past S are loaded as zeros and never stored. Not done:
+// S of tile t + 1 issued over tile t's softmax (ptxas serialised the
+// wgmma and spilled, both times it was tried).
 //
 // Any S: the ragged edge is masked. Tensors are addressed through
 // (batch, head, seq) strides with the head dimension contiguous, so the
 // (B, S, H, D) layout of the model and the (B, H, S, D) layout of the
 // kernel API both run without a transpose; the bf16 kernel's TMA maps
-// need those strides and the base pointers to be multiples of 16 bytes.
+// and the f32 kernel's 16-byte loads need those strides and the base
+// pointers to be multiples of 16 bytes.
 #include <cuda.h>          // CUtensorMap and its enums only: no -lcuda
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -70,157 +114,23 @@ namespace {
 
 constexpr float kNegInf = -1e30f;
 
-// ---------------------------------------------------------------------------
-// f32: IEEE FMA
-// ---------------------------------------------------------------------------
+// The work of CTA `cta` in a grid of ceil(S / rows) H B CTAs: the batch,
+// head and block of `rows` queries it runs, and how many `keys`-wide K/V
+// tiles that block reads. Causal, the longest query blocks (the last
+// ones) are handed out first, and tiles strictly above the block's
+// diagonal do no work. Both kernels and flash_attention_order use it.
+struct CtaWork {
+  int b, h, qblock, kv_tiles;
+};
 
-constexpr int kBQ = 64;           // query rows per CTA
-constexpr int kBK = 64;           // keys per K/V tile
-constexpr int kThreads = 256;     // 16 x 16: ty owns 4 rows, tx 4 columns
-
-__device__ __forceinline__ float row_max16(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float row_sum16(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-template <int D>
-constexpr size_t smem_f32() {
-  return sizeof(float) * (3 * kBK * (D + 1) + kBQ * (kBK + 1));
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-              const float* __restrict__ v, float* __restrict__ o, int group,
-              int S, int causal, float scale, long long qb, long long qh,
-              long long qs, long long kb, long long kh, long long ks,
-              long long vb, long long vh, long long vs, long long ob,
-              long long oh, long long os) {
-  constexpr int LD = D + 1;       // padded f32 row of Q, K and V
-  constexpr int PLD = kBK + 1;    // padded f32 row of P
-  constexpr int DC = D / 16;      // accumulator columns per thread
-  extern __shared__ float smem[];
-  float* sQ = smem;               // kBQ x LD
-  float* sK = sQ + kBQ * LD;      // kBK x LD
-  float* sV = sK + kBK * LD;      // kBK x LD
-  float* sP = sV + kBK * LD;      // kBQ x PLD
-
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  const int q0 = blockIdx.x * kBQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const float* qp = q + b * qb + h * qh;
-  const float* kp = k + b * kb + (h / group) * kh;
-  const float* vp = v + b * vb + (h / group) * vh;
-  float* op = o + b * ob + h * oh;
-
-  for (int i = tid; i < kBQ * D; i += kThreads) {
-    const int r = i / D, c = i % D;
-    sQ[r * LD + c] = (q0 + r < S) ? qp[(long long)(q0 + r) * qs + c] : 0.f;
-  }
-
-  float m[4], l[4], acc[4][DC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) acc[i][c] = 0.f;
-  }
-
-  const int n_tiles = (S + kBK - 1) / kBK;
-  // causal: tiles strictly above the block's diagonal do no work
-  const int nk = causal ? min(n_tiles, (q0 + kBQ - 1) / kBK + 1) : n_tiles;
-  for (int t = 0; t < nk; ++t) {
-    const int k0 = t * kBK;
-    __syncthreads();              // the last tile's readers are done
-    for (int i = tid; i < kBK * D; i += kThreads) {
-      const int r = i / D, c = i % D;
-      const bool in = k0 + r < S;
-      sK[r * LD + c] = in ? kp[(long long)(k0 + r) * ks + c] : 0.f;
-      sV[r * LD + c] = in ? vp[(long long)(k0 + r) * vs + c] : 0.f;
-    }
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 16
-    for (int d = 0; d < D; ++d) {
-      float a[4], bk[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = sQ[(ty * 4 + i) * LD + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bk[j] = sK[(tx + 16 * j) * LD + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], bk[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + ty * 4 + i;
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kpos = k0 + tx + 16 * j;
-        float x = s[i][j] * scale;
-        if ((causal && kpos > qpos) || kpos >= S) x = kNegInf;
-        s[i][j] = x;
-        mx = fmaxf(mx, x);
-      }
-      const float m_new = fmaxf(m[i], row_max16(mx));
-      const float alpha = expf(m[i] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        sum += p;
-        sP[(ty * 4 + i) * PLD + tx + 16 * j] = p;
-      }
-      l[i] = l[i] * alpha + row_sum16(sum);
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < DC; ++c) acc[i][c] *= alpha;
-    }
-    __syncthreads();
-
-#pragma unroll 8
-    for (int kk = 0; kk < kBK; ++kk) {
-      float p[4], vv[DC];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = sP[(ty * 4 + i) * PLD + kk];
-#pragma unroll
-      for (int c = 0; c < DC; ++c) vv[c] = sV[kk * LD + tx + 16 * c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < DC; ++c) acc[i][c] = fmaf(p[i], vv[c], acc[i][c]);
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty * 4 + i;
-    if (r >= S) continue;
-    const float denom = fmaxf(l[i], 1e-30f);
-#pragma unroll
-    for (int c = 0; c < DC; ++c)
-      op[(long long)r * os + tx + 16 * c] = acc[i][c] / denom;
-  }
+__host__ __device__ __forceinline__ CtaWork cta_work(int cta, int B, int H,
+                                                     int S, int causal,
+                                                     int rows, int keys) {
+  const int nq = (S + rows - 1) / rows, n_kv = (S + keys - 1) / keys;
+  const int hb = cta % (H * B), slot = cta / (H * B);
+  const int qblock = causal ? nq - 1 - slot : slot;
+  const int last = (qblock * rows + rows - 1) / keys + 1;
+  return {hb / H, hb % H, qblock, causal && last < n_kv ? last : n_kv};
 }
 
 // ---------------------------------------------------------------------------
@@ -487,16 +397,9 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
   const uint32_t bar_v = bar_k + 8 * kStages;       // + 8 s
   const uint32_t bar_e = bar_v + 8 * kStages;       // + 8 s
 
-  // the longest causal query blocks (the last ones) are handed out first
-  const int nq = (S + kTQ - 1) / kTQ;
-  const int hb = blockIdx.x % (H * B);
-  const int slot = blockIdx.x / (H * B);
-  const int qb = causal ? nq - 1 - slot : slot;
-  const int h = hb % H, b = hb / H;
-  const int q0 = qb * kTQ;
-  const int n_kv = (S + kTK - 1) / kTK;
-  // causal: tiles strictly above the block's diagonal do no work
-  const int nk = causal ? min(n_kv, qb + 1) : n_kv;
+  const CtaWork work = cta_work(blockIdx.x, B, H, S, causal, kTQ, kTK);
+  const int h = work.h, b = work.b, q0 = work.qblock * kTQ;
+  const int nk = work.kv_tiles;
 
   if (threadIdx.x == 0) {
     mbar_init(bar_q, 1);
@@ -669,6 +572,429 @@ flash_fwd_bf16(const __grid_constant__ CUtensorMap tq,
 }
 
 // ---------------------------------------------------------------------------
+// f32: three TF32 products on wgmma, fed by a splitting warpgroup
+// ---------------------------------------------------------------------------
+
+constexpr int kFQ = 64;               // query rows per CTA: one math warpgroup
+constexpr int kFK = 32;               // keys per stage: one 128 B row of f32
+constexpr int kFThreads = 2 * kWG;    // splitter + math
+
+// Shared memory of one CTA. Every tile is a K-major f32 wgmma operand in
+// boxes of 32 columns (128 B rows, 128-byte swizzle, 8-row groups 1 KB
+// apart), hi and lo apart: Q (64 rows x D, D / 32 boxes) once; per stage K
+// (32 keys x D, D / 32 boxes) and V^T (D rows x 32 keys, one box).
+template <int D>
+struct F32Tile {
+  static constexpr int kQBox = kFQ * 128;  // one box of Q
+  static constexpr int kKBox = kFK * 128;  // one box of K
+  static constexpr int kQ = kFQ * D * 4;   // Q hi or lo
+  static constexpr int kT = kFK * D * 4;   // K or V^T, hi or lo
+  static constexpr int kQhi = 0;
+  static constexpr int kQlo = kQ;
+  static constexpr int kStage = 4 * kT;    // K hi, K lo, V^T hi, V^T lo
+  static constexpr int kKV = 2 * kQ;       // stage s at kKV + s kStage
+  static constexpr int kBar = kKV + kStages * kStage;
+  // per stage a full and an empty barrier; + slack to align to 1 KB
+  static constexpr int kSmem = kBar + 16 * kStages + 1024;
+};
+
+__device__ __forceinline__ float4 ldg4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = hi + lo to within 2^-22 |x|, both tf32 rounded to nearest, ties
+// away from zero: hi by cvt.rna (a NaN stays a NaN), lo by the same
+// rounding done on its bits -- add half of the low 13 bits' range, clear
+// them -- which costs less than a second cvt; x - hi is finite and small
+// wherever x is finite, so the carry cannot reach the sign bit
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = (__float_as_uint(x - __uint_as_float(hi)) + 0x1000u) & 0xFFFFE000u;
+}
+
+__device__ __forceinline__ void split4(float4 x, uint4& hi, uint4& lo) {
+  split_tf32(x.x, hi.x, lo.x);
+  split_tf32(x.y, hi.y, lo.y);
+  split_tf32(x.z, hi.z, lo.z);
+  split_tf32(x.w, hi.w, lo.w);
+}
+
+// byte offset of f32 (row, col) in a K-major tile of ROWS rows
+template <int ROWS>
+__device__ __forceinline__ uint32_t kmajor(int row, int col) {
+  return (col / 32) * (ROWS * 128) + swizzle<128>(row * 128 + (col % 32) * 4);
+}
+
+__device__ __forceinline__ uint64_t f32_desc(uint32_t addr) {
+  return smem_desc(addr, 16, 1024, 1);
+}
+
+// D(64 x 32) (+)= A(64 x 8) B(8 x 32) in tf32, A and B from shared memory
+__device__ __forceinline__ void tf32_ss_n32(float (&d)[16], uint64_t da,
+                                            uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D(64 x N) (+)= A(64 x 8) B(8 x N) in tf32 for N = 32, 64, 128; A from
+// registers (rows r, r + 8 at columns c, c + 4), B from shared memory
+__device__ __forceinline__ void tf32_rs_n32(float (&d)[16], const uint32_t* a,
+                                            uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void tf32_rs_n64(float (&d)[32], const uint32_t* a,
+                                            uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void tf32_rs_n128(float (&d)[64],
+                                             const uint32_t* a, uint64_t db,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+template <int D>
+__device__ __forceinline__ void tf32_rs(float (&d)[D / 2], const uint32_t* a,
+                                        uint64_t db, int scale_d) {
+  if constexpr (D == 32)
+    tf32_rs_n32(d, a, db, scale_d);
+  else if constexpr (D == 64)
+    tf32_rs_n64(d, a, db, scale_d);
+  else
+    tf32_rs_n128(d, a, db, scale_d);
+}
+
+// issue S = Q K^T of the stage at kt: hi.hi into sc, hi.lo + lo.hi into
+// sx, 3 x D / 8 wgmma m64n32k8 from shared memory, as one commit group
+template <int D>
+__device__ __forceinline__ void f32_scores(float (&sc)[kFK / 2],
+                                           float (&sx)[kFK / 2],
+                                           uint32_t base, uint32_t kt) {
+  using T = F32Tile<D>;
+  // rebuilt per call: 2 x D / 8 descriptors of Q held across the tile
+  // loop would take 4 D / 8 registers
+  asm volatile("" : "+r"(base));
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) {
+    const uint32_t qo = (kk / 4) * T::kQBox + (kk % 4) * 32;
+    const uint32_t ko = (kk / 4) * T::kKBox + (kk % 4) * 32;
+    const uint64_t qa = f32_desc(base + T::kQhi + qo);
+    const uint64_t kh = f32_desc(kt + ko);
+    tf32_ss_n32(sc, qa, kh, kk > 0);
+    tf32_ss_n32(sx, qa, f32_desc(kt + T::kT + ko), kk > 0);
+    tf32_ss_n32(sx, f32_desc(base + T::kQlo + qo), kh, 1);
+  }
+  wgmma_commit();
+}
+
+template <int D>
+__global__ void __launch_bounds__(kFThreads, 1)
+flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, float* __restrict__ o, int B,
+              int H, int group, int S, int causal, float scale_log2,
+              long long qb, long long qh, long long qs, long long kb,
+              long long kh, long long ks, long long vb, long long vh,
+              long long vs, long long ob, long long oh, long long os) {
+  using T = F32Tile<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;  // swizzle lines are 1 KB
+  uint8_t* const gbase = smem_raw + (base - raw);
+  const uint32_t bar_full = base + T::kBar;           // + 8 s
+  const uint32_t bar_empty = bar_full + 8 * kStages;  // + 8 s
+
+  const CtaWork work = cta_work(blockIdx.x, B, H, S, causal, kFQ, kFK);
+  const int h = work.h, b = work.b, q0 = work.qblock * kFQ;
+  const int nk = work.kv_tiles;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bar_full + 8 * s, kWG);
+      mbar_init(bar_empty + 8 * s, kWG);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int tid = threadIdx.x % kWG;
+  const int warp = tid / 32, lane = tid % 32;
+  constexpr int kVec = D / 4;                  // float4 in a row
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  if (threadIdx.x < kWG) {
+    // splitter: loads each 32-key tile of K and V into registers with
+    // 16-byte loads (tile t + 1's issued before tile t is split, into the
+    // other of two register sets, so they land while it splits), splits
+    // it into tf32 hi and lo, and stores K as it lies and V transposed.
+    // Warp w loads V's keys 8w .. 8w + 7, 64 B of each row per load; key
+    // 8w + j goes to V^T column 8w + j / 2 (j even) or 8w + 4 + j / 2 (j
+    // odd): the columns where the tf32 A fragment of P holds the
+    // accumulator's columns j and j + 1.
+    const float* kp = k + b * kb + (h / group) * kh;
+    const float* vp = v + b * vb + (h / group) * vh;
+    const int vq = lane / 4, vc = lane % 4;
+    const int vcol = 8 * warp + (vq & 1) * 4 + vq / 2;
+    constexpr int kPer = kFK * kVec / kWG;     // float4 of K, and of V
+    auto load = [&](int t, float4 (&kd)[kPer], float4 (&vd)[kPer]) {
+      const int k0 = t * kFK;
+      const int key = k0 + 8 * warp + vq;
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) {
+        const int idx = tid + kWG * i;
+        const int row = k0 + idx / kVec;
+        kd[i] = row < S ? ldg4(kp + row * ks + 4 * (idx % kVec)) : zero;
+        vd[i] = key < S ? ldg4(vp + key * vs + 16 * i + 4 * vc) : zero;
+      }
+    };
+    auto store = [&](int t, const float4 (&kd)[kPer],
+                     const float4 (&vd)[kPer]) {
+      const int s = t % kStages;
+      mbar_wait(bar_empty + 8 * s, ((t / kStages) & 1) ^ 1);
+      uint8_t* const st = gbase + T::kKV + s * T::kStage;
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) {
+        const int idx = tid + kWG * i;
+        const uint32_t off = kmajor<kFK>(idx / kVec, 4 * (idx % kVec));
+        uint4 hi, lo;
+        split4(kd[i], hi, lo);
+        *reinterpret_cast<uint4*>(st + off) = hi;
+        *reinterpret_cast<uint4*>(st + T::kT + off) = lo;
+        split4(vd[i], hi, lo);
+        const uint32_t hs[4] = {hi.x, hi.y, hi.z, hi.w};
+        const uint32_t ls[4] = {lo.x, lo.y, lo.z, lo.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int d = 16 * i + 4 * vc + e;
+          const uint32_t vo = swizzle<128>(d * 128 + vcol * 4);
+          *reinterpret_cast<uint32_t*>(st + 2 * T::kT + vo) = hs[e];
+          *reinterpret_cast<uint32_t*>(st + 3 * T::kT + vo) = ls[e];
+        }
+      }
+      // the generic-proxy stores become visible to wgmma's async proxy
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      mbar_arrive(bar_full + 8 * s);
+    };
+    float4 ka[kPer], va[kPer], kn[kPer], vn[kPer];
+    load(0, ka, va);
+    for (int t = 0; t < nk; t += 2) {
+      if (t + 1 < nk) load(t + 1, kn, vn);
+      store(t, ka, va);
+      if (t + 1 < nk) {
+        if (t + 2 < nk) load(t + 2, ka, va);
+        store(t + 1, kn, vn);
+      }
+    }
+  } else {
+    // math: Q split into hi and lo once, then per tile S and P V
+    const float* qp = q + b * qb + h * qh;
+    for (int i = tid; i < kFQ * kVec; i += kWG) {
+      const int row = i / kVec, c = 4 * (i % kVec);
+      const float4 x = q0 + row < S ? ldg4(qp + (q0 + row) * qs + c) : zero;
+      uint4 hi, lo;
+      split4(x, hi, lo);
+      const uint32_t off = kmajor<kFQ>(row, c);
+      *reinterpret_cast<uint4*>(gbase + T::kQhi + off) = hi;
+      *reinterpret_cast<uint4*>(gbase + T::kQlo + off) = lo;
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    asm volatile("bar.sync 1, %0;\n" ::"n"(kWG) : "memory");
+
+    // accumulator layout: element 4j+e of a thread is row r0 + 8 (e / 2)
+    // of the tile, column 8j + c0 + (e % 2)
+    const int r0 = 16 * warp + lane / 4;
+    const int c0 = 2 * (lane % 4);
+    const int row0 = q0 + r0, row1 = row0 + 8;
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;  // rows r0, r0+8
+
+    // per tile: S as hi.hi in one accumulator and hi.lo + lo.hi in
+    // another, so the small terms' truncation in the tensor core's adds
+    // stays small and the two meet in one IEEE add; the online softmax;
+    // P V
+    for (int t = 0; t < nk; ++t) {
+      const int s = t % kStages;
+      const uint32_t kt = base + T::kKV + s * T::kStage;
+      const uint32_t vhi = kt + 2 * T::kT, vlo = kt + 3 * T::kT;
+      float sc[kFK / 2], sx[kFK / 2];
+      mbar_wait(bar_full + 8 * s, (t / kStages) & 1);
+      f32_scores<D>(sc, sx, base, kt);
+      wgmma_wait_all();
+      pin(sc);
+      pin(sx);
+#pragma unroll
+      for (int i = 0; i < kFK / 2; ++i) sc[i] += sx[i];
+
+      // the diagonal tiles (causal) and the ragged one (keys >= S)
+      const int k0 = t * kFK;
+      if ((causal && k0 + kFK - 1 > q0) || k0 + kFK > S) {
+#pragma unroll
+        for (int j = 0; j < kFK / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int kpos = k0 + 8 * j + c0 + (e & 1);
+            const int qpos = (e >> 1) ? row1 : row0;
+            if (kpos >= S || (causal && kpos > qpos)) sc[4 * j + e] = kNegInf;
+          }
+      }
+
+      // online softmax: each row lives on the 4 threads of a quad
+      float x0 = m0, x1 = m1;
+#pragma unroll
+      for (int j = 0; j < kFK / 8; ++j) {
+        x0 = fmaxf(x0, fmaxf(sc[4 * j], sc[4 * j + 1]));
+        x1 = fmaxf(x1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+      }
+#pragma unroll
+      for (int w = 1; w < 4; w <<= 1) {
+        x0 = fmaxf(x0, __shfl_xor_sync(0xffffffffu, x0, w));
+        x1 = fmaxf(x1, __shfl_xor_sync(0xffffffffu, x1, w));
+      }
+      // exp(s/sqrt(D) - m) as exp2 of the scores scaled by log2(e)/sqrt(D)
+      const float a0 = exp2f((m0 - x0) * scale_log2);
+      const float a1 = exp2f((m1 - x1) * scale_log2);
+      m0 = x0;
+      m1 = x1;
+      const float b0 = x0 * scale_log2, b1 = x1 * scale_log2;
+      float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < kFK / 8; ++j) {
+        sc[4 * j] = exp2f(fmaf(sc[4 * j], scale_log2, -b0));
+        sc[4 * j + 1] = exp2f(fmaf(sc[4 * j + 1], scale_log2, -b0));
+        sc[4 * j + 2] = exp2f(fmaf(sc[4 * j + 2], scale_log2, -b1));
+        sc[4 * j + 3] = exp2f(fmaf(sc[4 * j + 3], scale_log2, -b1));
+        sum0 += sc[4 * j] + sc[4 * j + 1];
+        sum1 += sc[4 * j + 2] + sc[4 * j + 3];
+      }
+      l0 = l0 * a0 + sum0;          // this thread's share; quad-summed last
+      l1 = l1 * a1 + sum1;
+      // p split into tf32 hi and lo in the A fragment's order: k8 step j
+      // takes accumulator columns 8j + c0 and 8j + c0 + 1 as its columns
+      // c0 / 2 and c0 / 2 + 4 (V^T's columns were permuted to match)
+      uint32_t ph[kFK / 2], pl[kFK / 2];
+#pragma unroll
+      for (int j = 0; j < kFK / 8; ++j) {
+        split_tf32(sc[4 * j], ph[4 * j], pl[4 * j]);
+        split_tf32(sc[4 * j + 2], ph[4 * j + 1], pl[4 * j + 1]);
+        split_tf32(sc[4 * j + 1], ph[4 * j + 2], pl[4 * j + 2]);
+        split_tf32(sc[4 * j + 3], ph[4 * j + 3], pl[4 * j + 3]);
+      }
+
+      // this tile's P V in a fresh accumulator (12 tensor-core adds),
+      // added to the running output in IEEE f32
+      float pv[D / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kFK / 8; ++kk) {
+        const uint64_t vh_d = f32_desc(vhi + kk * 32);
+        tf32_rs<D>(pv, ph + 4 * kk, vh_d, kk > 0);
+        tf32_rs<D>(pv, ph + 4 * kk, f32_desc(vlo + kk * 32), 1);
+        tf32_rs<D>(pv, pl + 4 * kk, vh_d, 1);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      pin(pv);
+      mbar_arrive(bar_empty + 8 * s);   // this thread is done with stage s
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i)
+        acc[i] = fmaf(acc[i], (i & 2) ? a1 : a0, pv[i]);
+    }
+
+    // epilogue: acc / max(l, 1e-30) straight to device memory
+#pragma unroll
+    for (int w = 1; w < 4; w <<= 1) {
+      l0 += __shfl_xor_sync(0xffffffffu, l0, w);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, w);
+    }
+    const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+    float* const op = o + b * ob + h * oh;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int c = 8 * j + c0;
+      if (row0 < S)
+        *reinterpret_cast<float2*>(op + row0 * os + c) =
+            make_float2(acc[4 * j] / d0, acc[4 * j + 1] / d0);
+      if (row1 < S)
+        *reinterpret_cast<float2*>(op + row1 * os + c) =
+            make_float2(acc[4 * j + 2] / d1, acc[4 * j + 3] / d1);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
 
@@ -737,26 +1063,54 @@ struct Args {
   cudaStream_t stream;
 };
 
+// The launch flash_attention_fwd makes for (dtype, B, H, S, D): both
+// the launch and flash_attention_plan take their numbers from here.
+struct Plan {
+  long long ctas;
+  int threads, smem, rows, keys, stages, load, math;
+};
+
+bool plan_of(int dtype, int B, int H, int S, int D, Plan* p) {
+  int smem = -1;
+  switch (dtype * 1000 + D) {
+    case 32: smem = F32Tile<32>::kSmem; break;
+    case 64: smem = F32Tile<64>::kSmem; break;
+    case 128: smem = F32Tile<128>::kSmem; break;
+    case 1032: smem = Tile<32>::kSmem; break;
+    case 1064: smem = Tile<64>::kSmem; break;
+    case 1128: smem = Tile<128>::kSmem; break;
+    default: return false;
+  }
+  const bool f32 = dtype == 0;
+  const int rows = f32 ? kFQ : kTQ;
+  *p = {(long long)((S + rows - 1) / rows) * H * B,
+        f32 ? kFThreads : kTmaThreads,
+        smem,
+        rows,
+        f32 ? kFK : kTK,
+        kStages,
+        1,
+        f32 ? 1 : 2};
+  return true;
+}
+
 template <int D>
-cudaError_t launch_f32(const Args& a) {
-  if (a.H > 65535 || a.B > 65535) return cudaErrorInvalidValue;
-  constexpr size_t smem = smem_f32<D>();
+cudaError_t launch_f32(const Args& a, const Plan& p) {
+  if (!is_sm90()) return cudaErrorNoKernelImageForDevice;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      flash_fwd_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
   if (err != cudaSuccess) return err;
-  const float scale = (float)(1.0 / sqrt((double)D));
-  const dim3 grid((a.S + kBQ - 1) / kBQ, a.H, a.B);
-  flash_fwd_f32<D><<<grid, kThreads, smem, a.stream>>>(
+  const float scale_log2 = (float)(1.4426950408889634 / sqrt((double)D));
+  flash_fwd_f32<D><<<(unsigned)p.ctas, p.threads, p.smem, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-      static_cast<const float*>(a.v), static_cast<float*>(a.o), a.H / a.KV,
-      a.S, a.causal, scale, a.qb, a.qh, a.qs, a.kb, a.kh, a.ks, a.vb, a.vh,
-      a.vs, a.ob, a.oh, a.os);
+      static_cast<const float*>(a.v), static_cast<float*>(a.o), a.B, a.H,
+      a.H / a.KV, a.S, a.causal, scale_log2, a.qb, a.qh, a.qs, a.kb, a.kh,
+      a.ks, a.vb, a.vh, a.vs, a.ob, a.oh, a.os);
   return cudaGetLastError();
 }
 
 template <int D>
-cudaError_t launch_bf16(const Args& a) {
+cudaError_t launch_bf16(const Args& a, const Plan& p) {
   if (!is_sm90()) return cudaErrorNoKernelImageForDevice;
   CUtensorMap mq, mk, mv, mo;
   if (!tensor_map(&mq, a.q, D, a.S, a.H, a.B, a.qb, a.qh, a.qs, kTQ) ||
@@ -764,26 +1118,26 @@ cudaError_t launch_bf16(const Args& a) {
       !tensor_map(&mv, a.v, D, a.S, a.KV, a.B, a.vb, a.vh, a.vs, kTK) ||
       !tensor_map(&mo, a.o, D, a.S, a.H, a.B, a.ob, a.oh, a.os, 64))
     return cudaErrorInvalidValue;
-  const int smem = Tile<D>::kSmem;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_fwd_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
   if (err != cudaSuccess) return err;
-  const long long blocks = (long long)((a.S + kTQ - 1) / kTQ) * a.H * a.B;
-  if (blocks > INT_MAX) return cudaErrorInvalidValue;
   const float scale_log2 = (float)(1.4426950408889634 / sqrt((double)D));
-  flash_fwd_bf16<D><<<(unsigned)blocks, kTmaThreads, smem, a.stream>>>(
+  flash_fwd_bf16<D><<<(unsigned)p.ctas, p.threads, p.smem, a.stream>>>(
       mq, mk, mv, mo, a.B, a.H, a.H / a.KV, a.S, a.causal, scale_log2);
   return cudaGetLastError();
 }
 
 cudaError_t by_dim(int dtype, int D, const Args& a) {
+  Plan p;
+  if (!plan_of(dtype, a.B, a.H, a.S, D, &p) || p.ctas > INT_MAX)
+    return cudaErrorInvalidValue;
   switch (dtype * 1000 + D) {
-    case 32: return launch_f32<32>(a);
-    case 64: return launch_f32<64>(a);
-    case 128: return launch_f32<128>(a);
-    case 1032: return launch_bf16<32>(a);
-    case 1064: return launch_bf16<64>(a);
-    case 1128: return launch_bf16<128>(a);
+    case 32: return launch_f32<32>(a, p);
+    case 64: return launch_f32<64>(a, p);
+    case 128: return launch_f32<128>(a, p);
+    case 1032: return launch_bf16<32>(a, p);
+    case 1064: return launch_bf16<64>(a, p);
+    case 1128: return launch_bf16<128>(a, p);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -792,9 +1146,9 @@ cudaError_t by_dim(int dtype, int D, const Args& a) {
 
 // q: (B, H, S, D) at strides (qb, qh, qs); k and v: (B, KV, S, D) at
 // strides (kb, kh, ks) and (vb, vh, vs); o: like q at strides (ob, oh,
-// os); the last dimension contiguous in all four. dtype 0: float32 (FMA
-// kernel), 1: bfloat16 (wgmma kernel: sm_90 only, 16-byte aligned
-// pointers and strides). Launches on `stream` and returns
+// os); the last dimension contiguous in all four. dtype 0: float32, 1:
+// bfloat16 (both wgmma kernels: sm_90 only, 16-byte aligned pointers and
+// strides). Launches on `stream` and returns
 // cudaGetLastError() of the launch, or the error that kept it from
 // launching.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
@@ -814,15 +1168,35 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   return (int)by_dim(dtype, D, a);
 }
 
-// dynamic shared memory of one CTA of the kernel for (dtype, D), or -1
-extern "C" int flash_attention_smem(int dtype, int D) {
-  switch (dtype * 1000 + D) {
-    case 32: return (int)smem_f32<32>();
-    case 64: return (int)smem_f32<64>();
-    case 128: return (int)smem_f32<128>();
-    case 1032: return Tile<32>::kSmem;
-    case 1064: return Tile<64>::kSmem;
-    case 1128: return Tile<128>::kSmem;
-    default: return -1;
+// The launch flash_attention_fwd makes for (dtype, B, H, S, D), as
+// out[8] = {CTAs, threads per CTA, dynamic shared bytes, query rows per
+// CTA, keys per K/V stage, stages, loading warpgroups, math warpgroups};
+// returns 0, or cudaErrorInvalidValue for a dtype or D it has no kernel
+// for, or a grid past INT_MAX CTAs.
+extern "C" int flash_attention_plan(int dtype, int B, int H, int S, int D,
+                                    int* out) {
+  Plan p;
+  if (!plan_of(dtype, B, H, S, D, &p) || p.ctas > INT_MAX)
+    return (int)cudaErrorInvalidValue;
+  const int plan[8] = {(int)p.ctas, p.threads, p.smem,  p.rows,
+                       p.keys,      p.stages,  p.load, p.math};
+  for (int i = 0; i < 8; ++i) out[i] = plan[i];
+  return 0;
+}
+
+// The work of each CTA of that launch, as the kernel computes it:
+// out[4 i .. 4 i + 3] = {batch, head, query block, K/V tiles read} of CTA
+// i, for every CTA of the grid flash_attention_plan gives. Returns 0, or
+// cudaErrorInvalidValue as flash_attention_plan does.
+extern "C" int flash_attention_order(int dtype, int B, int H, int S, int D,
+                                     int causal, int* out) {
+  Plan p;
+  if (!plan_of(dtype, B, H, S, D, &p) || p.ctas > INT_MAX)
+    return (int)cudaErrorInvalidValue;
+  for (int i = 0; i < (int)p.ctas; ++i) {
+    const CtaWork w = cta_work(i, B, H, S, causal, p.rows, p.keys);
+    const int cta[4] = {w.b, w.h, w.qblock, w.kv_tiles};
+    for (int j = 0; j < 4; ++j) out[4 * i + j] = cta[j];
   }
+  return 0;
 }

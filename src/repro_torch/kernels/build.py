@@ -120,8 +120,12 @@ def load() -> ctypes.CDLL:
             lib.flash_attention_fwd.argtypes = [vp] * 4 + [i] * 7 + \
                 [ll] * 12 + [vp]
             lib.flash_attention_fwd.restype = ctypes.c_int
-            lib.flash_attention_smem.argtypes = [i, i]
-            lib.flash_attention_smem.restype = ctypes.c_int
+            lib.flash_attention_plan.argtypes = [i] * 5 + \
+                [ctypes.POINTER(i)]
+            lib.flash_attention_plan.restype = ctypes.c_int
+            lib.flash_attention_order.argtypes = [i] * 6 + \
+                [ctypes.POINTER(i)]
+            lib.flash_attention_order.restype = ctypes.c_int
             lib.wkv6_fwd.argtypes = [vp] * 6 + [i] * 5 + [ll] * 6 + [vp]
             lib.wkv6_fwd.restype = ctypes.c_int
             lib.wkv6_plan.argtypes = [i] * 4 + [ctypes.POINTER(i)]

@@ -3,8 +3,10 @@
 
 A tensor on the CPU goes to the plain version in ``ref``; a tensor on the
 card launches the kernel, and anything else raises. There is no fallback
-from one to the other. On the card the dtype picks the kernel: bfloat16
-runs on the tensor cores (wgmma fed by TMA), float32 on IEEE FMA.
+from one to the other. On the card the dtype picks the kernel, both on
+the tensor cores: bfloat16 as bf16 wgmma fed by TMA, float32 as three
+TF32 wgmma products of operands split into hi and lo parts, which keeps
+f32 accuracy (``launch_plan`` gives each kernel's launch and tiles).
 ``LAUNCHES`` counts kernel launches, so a run can show that its path
 went through the kernel.
 """
@@ -19,7 +21,59 @@ from repro_torch.kernels.flash_attention import ref
 
 HEAD_DIMS = (32, 64, 128)        # template instances of the kernel
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+WARPGROUP = 128                  # threads of a warpgroup
+STAGES = 2                       # K/V stages in shared memory
+# per dtype: query rows per CTA, keys per K/V stage, and the warpgroups
+# that load (bf16: a TMA producer; f32: loads and splits into tf32 hi and
+# lo) and that run the math (64 query rows each)
+TILES = {torch.float32: {"block_q": 64, "block_k": 32, "load": 1,
+                         "math": 1},
+         torch.bfloat16: {"block_q": 128, "block_k": 128, "load": 1,
+                          "math": 2}}
 LAUNCHES = 0
+
+
+def smem_bytes(d: int, dtype: torch.dtype) -> int:
+    """Dynamic shared memory of one CTA, as ``csrc/flash_attention.cu``
+    lays it out, with 1 KB of slack to align the swizzled tiles. f32: Q
+    hi and lo (64 x d each), and per stage K hi, K lo, V^T hi and V^T lo
+    (32 keys x d each), all f32, and a full and an empty mbarrier per
+    stage. bf16: Q (128 x d) and per stage K and V (128 x d each), and a
+    Q barrier and three per stage."""
+    t = TILES[dtype]
+    if dtype == torch.float32:
+        return (2 * t["block_q"] * d * 4 + STAGES * 4 * t["block_k"] * d * 4
+                + 16 * STAGES + 1024)
+    tile = t["block_k"] * d * 2
+    return tile * (1 + 2 * STAGES) + 8 * (1 + 3 * STAGES) + 1024
+
+
+def launch_plan(b: int, h: int, kv: int, s: int, d: int,
+                dtype: torch.dtype, causal: bool = True) -> dict:
+    """The launch ``csrc/flash_attention.cu`` makes: ``grid`` (CTAs),
+    ``threads``, ``smem_bytes``, ``block_q`` (query rows per CTA),
+    ``block_k`` (keys per K/V stage), ``stages``, ``warpgroups`` (how
+    many load and how many run the math), ``order`` (the (batch, head,
+    query block) of each CTA in launch order: causal, the longest blocks
+    first) and ``kv_tiles`` (the K/V tiles each query block runs, the
+    causal skip included). ``kv`` only checks the GQA grouping."""
+    if d not in HEAD_DIMS or dtype not in TILES or kv <= 0 or h % kv:
+        raise ValueError(f"launch_plan: d={d} dtype={dtype} h={h} kv={kv}")
+    t = TILES[dtype]
+    bq, bk = t["block_q"], t["block_k"]
+    nq, n_kv = -(-s // bq), -(-s // bk)
+    order = []
+    for i in range(nq * h * b):
+        hb, slot = i % (h * b), i // (h * b)
+        order.append((hb // h, hb % h, nq - 1 - slot if causal else slot))
+    tiles = [min(n_kv, (q * bq + bq - 1) // bk + 1) if causal else n_kv
+             for q in range(nq)]
+    return {"grid": nq * h * b,
+            "threads": (t["load"] + t["math"]) * WARPGROUP,
+            "smem_bytes": smem_bytes(d, dtype), "block_q": bq,
+            "block_k": bk, "stages": STAGES,
+            "warpgroups": {"load": t["load"], "math": t["math"]},
+            "order": order, "kv_tiles": tiles}
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int):
@@ -46,8 +100,8 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int):
 
 
 def _tma_ready(t: torch.Tensor, heads: int) -> bool:
-    """What the bf16 kernel's TMA maps need (and the f32 kernel takes
-    too): the head dimension contiguous, the base pointer and the
+    """What the bf16 kernel's TMA maps and the f32 kernel's 16-byte
+    loads need: the head dimension contiguous, the base pointer and the
     (batch, head, seq) strides positive multiples of 16 bytes."""
     es = t.element_size()
     return (t.stride(3) == 1 and t.data_ptr() % 16 == 0 and all(

@@ -1,7 +1,11 @@
 """The port's flash attention (plain PyTorch version on the CPU) against
 the JAX package's Pallas kernel in interpret mode and its jnp oracle:
 the same numpy inputs through both, on the cases of
-tests/test_kernels.py::TestFlashAttention."""
+tests/test_kernels.py::TestFlashAttention. The f32 CUDA kernel's
+arithmetic (three TF32 products over its tiles) is replayed in plain
+torch by ``emulate_split_tf32`` and held to the JAX kernel too."""
+import math
+
 import numpy as np
 import pytest
 
@@ -141,13 +145,16 @@ def _misaligned(shape, dtype):
 
 
 # (layout, dtype, misaligned view): BHSD, BSHD, a BSHD view of BHSD
-# tensors (no copy), and misaligned views (copied)
+# tensors (no copy), and misaligned views (copied); f32 in every layout,
+# since its kernel's 16-byte loads take the same strides as bf16's TMA
 LAUNCH_CASES = [("bhsd", torch.bfloat16, False),
                 ("bshd", torch.bfloat16, False),
                 ("bshd-view", torch.bfloat16, False),
                 ("bhsd", torch.bfloat16, True),
                 ("bshd", torch.float32, True),
-                ("bhsd", torch.float32, False)]
+                ("bhsd", torch.float32, False),
+                ("bshd", torch.float32, False),
+                ("bshd-view", torch.float32, False)]
 
 
 @pytest.mark.parametrize(
@@ -233,3 +240,183 @@ def test_smoke_l2_bound_admits_tiled_rounding_and_catches_a_scale_error(
     with pytest.raises(SystemExit):
         check.close("scale 1.02", off, want, 3e-2, smoke.FLASH_L2)
     assert check.mismatches == 1 and check.max_l2_err > smoke.FLASH_L2
+
+
+# ---------------------------------------------------------------------------
+# the f32 kernel's split-TF32 arithmetic, replayed on the CPU
+# ---------------------------------------------------------------------------
+
+def tf32(x: torch.Tensor) -> torch.Tensor:
+    """``cvt.rna.tf32.f32``: round to the nearest tf32 (10 explicit
+    mantissa bits), ties away from zero -- on the int32 view, add half of
+    the low 13 bits' range and clear them (the sign bit rides along)."""
+    i = x.float().contiguous().view(torch.int32)
+    return ((i + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split_tf32(x: torch.Tensor):
+    """(hi, lo), both tf32, with x = hi + lo to within 2^-22 |x|."""
+    hi = tf32(x)
+    return hi, tf32(x - hi)
+
+
+def _tf32_mm(a, b, products: int = 3):
+    """a @ b^T as the kernel forms it: hi.hi, plus hi.lo + lo.hi summed
+    apart (three products), f32 sums."""
+    ah, al = split_tf32(a)
+    bh, bl = split_tf32(b)
+    main = ah @ bh.transpose(-1, -2)
+    if products == 1:
+        return main
+    return main + (ah @ bl.transpose(-1, -2) + al @ bh.transpose(-1, -2))
+
+
+def emulate_split_tf32(q, k, v, causal: bool = True,
+                       products: int = 3) -> torch.Tensor:
+    """The f32 CUDA kernel's arithmetic in plain torch: per query block
+    of ``block_q`` rows, the K/V tiles of ``block_k`` keys that
+    ``ops.launch_plan`` gives it (the causal skip included), scores as
+    three TF32 products, the diagonal and ragged tiles masked to -1e30,
+    the online softmax in exp2 with the scale folded with log2 e, p split
+    again for P V, each tile's P V added to the running output. q: (B, H,
+    S, D) f32; k, v: (B, KV, S, D)."""
+    b, h, s, d = q.shape
+    plan = ops.launch_plan(b, h, k.shape[1], s, d, torch.float32, causal)
+    bq, bk = plan["block_q"], plan["block_k"]
+    group = h // k.shape[1]
+    k = k.repeat_interleave(group, dim=1)
+    v = v.repeat_interleave(group, dim=1)
+    c = torch.tensor(1.4426950408889634 / math.sqrt(d), dtype=torch.float32)
+    out = torch.empty_like(q)
+    for qb, n_tiles in enumerate(plan["kv_tiles"]):
+        rows = torch.arange(qb * bq, min(qb * bq + bq, s))
+        qt = q[:, :, rows]
+        m = torch.full((b, h, len(rows)), -1e30)
+        l = torch.zeros(b, h, len(rows))
+        acc = torch.zeros(b, h, len(rows), d)
+        for t in range(n_tiles):
+            keys = torch.arange(t * bk, min(t * bk + bk, s))
+            sc = _tf32_mm(qt, k[:, :, keys], products)
+            if causal:
+                sc = sc.masked_fill(keys[None, :] > rows[:, None], -1e30)
+            x = torch.maximum(m, sc.amax(-1))
+            alpha = torch.exp2((m - x) * c)
+            p = torch.exp2(sc * c - (x * c)[..., None])
+            l = l * alpha + p.sum(-1)
+            vt = v[:, :, keys]
+            if products == 1:
+                pv = tf32(p) @ tf32(vt)
+            else:
+                ph, pl = split_tf32(p)
+                vh, vl = split_tf32(vt)
+                pv = ph @ vh + (ph @ vl + pl @ vh)
+            acc = acc * alpha[..., None] + pv
+            m = x
+        out[:, :, rows] = acc / l.clamp_min(1e-30)[..., None]
+    return out
+
+
+# (b, h, kv, s, d, causal): the f32 sweep (GQA groups 1, 2 and 4, causal
+# and not) against the Pallas kernel; S not a multiple of the kernel's
+# 64-row blocks and 32-key stages, and S = 1, against the plain version
+SPLIT_CASES = [(2, 4, 4, 256, 64, True), (2, 4, 1, 128, 64, False),
+               (1, 2, 2, 512, 32, True), (1, 8, 4, 256, 128, True),
+               (1, 4, 2, 100, 64, True), (1, 8, 2, 77, 128, False),
+               (2, 4, 1, 1, 32, True)]
+
+
+@pytest.mark.parametrize("b,h,kv,s,d,causal", SPLIT_CASES)
+def test_split_tf32_emulation_matches_jax_kernel(b, h, kv, s, d, causal,
+                                                 rng):
+    """Three TF32 products over the kernel's tiles give the function to
+    f32 accuracy: within 1e-5 of the JAX Pallas kernel in interpret mode
+    (64-row blocks, so S % 64 == 0), else of the port's plain version."""
+    (jq, jk, jv), (tq, tk, tv) = _qkv(rng, b, h, kv, s, d)
+    got = emulate_split_tf32(tq, tk, tv, causal)
+    if s % 64 == 0:
+        want = _f32(jax_flash(jq, jk, jv, causal=causal, block_q=64,
+                              block_k=64))
+    else:
+        want = _f32(ref.attention_ref(tq, tk, tv, causal=causal))
+    np.testing.assert_allclose(_f32(got), want, rtol=1e-5, atol=1e-5)
+
+
+def test_one_tf32_product_does_not_hold_f32_accuracy(rng):
+    """Why three products: with one (hi.hi, 11 significant bits) the
+    same tiles miss the 1e-5 bound by far."""
+    (jq, jk, jv), (tq, tk, tv) = _qkv(rng, 1, 8, 4, 256, 128)
+    want = _f32(jax_flash(jq, jk, jv, causal=True, block_q=64, block_k=64))
+    one = _f32(emulate_split_tf32(tq, tk, tv, True, products=1))
+    err = np.abs(one - want) / (1e-5 + 1e-5 * np.abs(want))
+    assert err.max() > 10
+
+
+EDGES = [0.0, -0.0, 1.0, -1.5, 3.0e-39, -1.0e-40, 1.4e-45, 1.17549435e-38,
+         1e30, -1e30, 6.5e4, 1e-30, 0.1, 1.0 / 3.0]
+
+
+def test_split_tf32_reconstructs_within_2_to_the_minus_22(rng):
+    """hi + lo = x to within 2^-22 |x|, both parts tf32, on random values
+    over 60 binades and on edges: 0, subnormals, the smallest normal,
+    +-1e30 and the -1e30 mask. Below 2^-115 the low part is subnormal
+    and rounds to a multiple of 2^-136 (tf32 drops the low 13 bits of a
+    subnormal too), so there the bound is 2^-137 absolute."""
+    mags = 10.0 ** rng.uniform(-30, 30, 4096)
+    x = torch.from_numpy(np.concatenate([
+        rng.standard_normal(4096) * mags, EDGES]).astype(np.float32))
+    hi, lo = split_tf32(x)
+    for part in (hi, lo):
+        assert not bool((part.view(torch.int32) & 0x1FFF).any())
+    err = (x.double() - hi.double() - lo.double()).abs()
+    bound = torch.maximum(x.double().abs() * 2.0 ** -22,
+                          torch.tensor(2.0 ** -137, dtype=torch.float64))
+    assert bool((err <= bound).all())
+    assert bool((lo.abs() <= hi.abs() * 2.0 ** -11).all())
+    normal = x.abs() >= 2.0 ** -115
+    assert bool((err[normal] <= x.double().abs()[normal] * 2.0 ** -22).all())
+    for v in (0.0, 1.0, -1.5, 1e30, -1e30):
+        h_, l_ = split_tf32(torch.tensor([v]))
+        assert float(h_.double() + l_.double()) == pytest.approx(
+            v, rel=2.0 ** -22, abs=0.0)
+
+
+@pytest.mark.parametrize("d", ops.HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_launch_plan_fits_and_hands_out_longest_blocks_first(d, dtype):
+    """Each kernel's CTA fits the 232,448 bytes of shared memory a block
+    may take, and its grid covers every (batch, head, query block) once:
+    causal, the longest blocks first (their K/V tile counts never rise
+    along the launch order); else in order. ``chip_smoke.py`` holds this
+    order and these tile counts to the library's ``flash_attention_order``,
+    which computes them with the kernels' own function."""
+    for b, h, kv, s in [(1, 32, 8, 4096), (4, 32, 8, 128), (2, 4, 2, 200),
+                        (1, 2, 1, 1)]:
+        for causal in (True, False):
+            plan = ops.launch_plan(b, h, kv, s, d, dtype, causal)
+            assert plan["smem_bytes"] <= 232_448
+            wgs = plan["warpgroups"]
+            assert plan["threads"] == 128 * (wgs["load"] + wgs["math"])
+            nq = -(-s // plan["block_q"])
+            assert plan["grid"] == len(plan["order"]) == nq * b * h
+            assert sorted(plan["order"]) == [
+                (bi, hi, qi) for bi in range(b) for hi in range(h)
+                for qi in range(nq)]
+            n_kv, bq, bk = (-(-s // plan["block_k"]), plan["block_q"],
+                            plan["block_k"])
+            for qi, n in enumerate(plan["kv_tiles"]):
+                # every key the block's last row attends, and no tile
+                # wholly past it
+                end = min(s, (qi + 1) * bq) if causal else s
+                assert n * bk >= end > (n - 1) * bk
+            tiles = [plan["kv_tiles"][qi] for _, _, qi in plan["order"]]
+            if causal:
+                assert plan["order"][0][2] == nq - 1
+                assert tiles == sorted(tiles, reverse=True)
+                assert tiles[0] == n_kv and 1 <= tiles[-1] <= n_kv
+            else:
+                assert [qi for _, _, qi in plan["order"]] == sorted(
+                    qi for _, _, qi in plan["order"])
+                assert set(tiles) == {n_kv}
+    if dtype == torch.float32:       # Q hi/lo + 2 stages of 4 tiles
+        assert ops.smem_bytes(d, dtype) == 1536 * d + 32 + 1024
