@@ -45,6 +45,29 @@ Phases, each of which fails the run on error:
            float32 ``allreduce`` equals the sum computed on the card; a
            persistent ``allreduce_init`` hits a pre-posted entry on every
            rendezvous send; every rank launched the kernel.
+3b. window ``run_processes(2, window_path, ...)``, same pool and cells:
+           ``win_allocate`` of 8 MiB + 64 B a rank; at every size of
+           ``SIZES`` an ``rput`` + ``flush`` of a seeded CUDA tensor into
+           the peer, read there through ``local_view`` byte for byte, an
+           ``rget`` back into a CUDA tensor byte for byte, the
+           ``rma_put``/``rma_get`` deltas equal to the payload bytes
+           exactly, and a ``put_notify`` -> ``wait_notify`` ping-pong; a
+           1 MiB ``put_notify`` whose receiver copies 0 bytes; 8
+           ``raccumulate``s of a 1 MiB float32 tensor from both ranks
+           equal to the sum computed on the card; the window
+           ``allgather`` and ``bcast`` of 1 MiB a rank; ``rput``/``rget``
+           against a ``PoolBuffer`` attached to a ``win_create_dynamic``
+           window; a ``lock_all``/``flush``/``unlock_all`` epoch; both
+           ranks launched the kernel.
+3c. serve  ``run_processes(4, serve_path, ...)``, same pool and cells: the
+           serving tier at the JAX package's full cut
+           (``benchmarks/serve_qps.py``): router + 3 workers, 2000
+           sessions at 1500/s, ``verify_every=29``, 128 slots of 4096 B
+           pages a worker, seed 0; every session done, no bad checksum or
+           failed page verify, the raccumulated token total equal to the
+           DONE frames', the copy accounting of
+           ``serve_qps.check_copy_accounting`` exact, every worker
+           launched the kernel.
 4. model   llama3-8b, then rwkv6-3b, at full width and depth with random
            f32 weights from a seed, bf16 compute: ``serve_batch`` (batch
            4, 128-token prompts, 32 new tokens), ``lm.prefill`` on the
@@ -55,12 +78,15 @@ Phases, each of which fails the run on error:
            logits against the teacher-forced decode's (which runs no
            kernel) within 1e-3 * max|logit|.
 5. report  the ``kernels`` JSON line (times at the main paths' shapes,
-           ``cellcopy``'s beside ``Tensor.copy_``, ``wkv6``'s in cycles
+           ``cellcopy``'s beside ``Tensor.copy_`` (one at the serving
+           tier's 4096 B page), its launches per path, ``wkv6``'s in cycles
            per token, and the f32 flash kernel at the parity prefill's
            shape and at the long prompt, beside its FMA and split-TF32
            bounds),
-           one-way latency and bandwidth per path and size, the serving
-           numbers per model, and the card's name and power limit.
+           one-way latency and bandwidth per path and size, one-sided
+           latency and bandwidth per size, the serving tier's QPS and
+           latency, the serving numbers per model, and the card's name
+           and power limit.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
 or outside a checkout of the repository, it exits non-zero and prints no
@@ -90,6 +116,16 @@ BUDGET_KEYS = {"eager": "pt2pt_eager@1MiB",
                "posted": "pt2pt_rndv_posted@1MiB"}
 ALLREDUCE_BYTES = 8 * MiB
 PERSIST_BYTES, PERSIST_ROUNDS = MiB, 10
+# the window phase: an 8 MiB segment (the largest size) and 64 B more
+WIN_BYTES = 8 * MiB + 64
+RACC_ROUNDS = 8
+SOLO_ACC_ROUNDS = 2
+# the serving tier at benchmarks/serve_qps.py's full cut (FULL, and the
+# ServeConfig run_bench builds from it)
+SERVE_RANKS = 4
+SERVE_TIER = {"sessions": 2000, "rate": 1500.0, "verify_every": 29,
+              "slots_per_worker": 128, "page_bytes": 4096,
+              "deadline_s": 600.0, "seed": 0}
 
 # peak rates of one H100 SXM (NVIDIA's data sheet): HBM3, and the host
 # link, PCIe 5.0 x16 (32 GT/s x 16 lanes, 128b/130b) in one direction;
@@ -252,6 +288,297 @@ def main_path(env) -> dict:
                          "misses": env.arena.view.stats.mb_capacity_misses}
     res["launches"] = ops.LAUNCHES
     return res
+
+
+# ---------------------------------------------------------------------------
+# phases 3b and 3c: one-sided windows and the serving tier (module level:
+# run_processes spawns)
+# ---------------------------------------------------------------------------
+
+def _notify_pingpong(win, rank: int, src, iters: int) -> float:
+    """Seconds one way of a ``put_notify`` answered by ``wait_notify``:
+    rank 0 notifies rank 1, which notifies back, ``iters`` times."""
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        if rank == 0:
+            win.put_notify(1, 0, src)
+            win.wait_notify(1, timeout=60.0)
+        else:
+            win.wait_notify(0, timeout=60.0)
+            win.put_notify(0, 0, src)
+    return (time.perf_counter() - t0) / iters / 2
+
+
+def _rma_paths(delta: dict) -> dict:
+    """The one-sided buckets of a stats delta (the first chunked
+    transfer also agrees its chunk size across ranks over the wire)."""
+    return {k: v for k, v in delta["path_copied_bytes"].items()
+            if k.startswith("rma_")}
+
+
+def window_path(env) -> dict:
+    """The one-sided path with CUDA tensors: returns this rank's checks,
+    times and kernel launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.cellcopy import ops
+    ops.LAUNCHES = 0
+    c, rank, peer = env.comm, env.rank, 1 - env.rank
+    st = env.arena.view.stats
+    dev = c.device
+    win = c.win_allocate("smoke:win", WIN_BYTES)
+    res: dict = {"rank": rank, "sizes": {}}
+    for size in SIZES:
+        iters = iters_for(size)
+        src = _payload(size, 7000 + 2 * size + rank, dev)
+        want = _payload(size, 7000 + 2 * size + peer, dev)
+        win.fence()
+        s0 = st.snapshot()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            win.rput(peer, 0, src)
+            win.flush(peer)
+        t_put = (time.perf_counter() - t0) / iters
+        d_put = _rma_paths(st.delta(s0))
+        win.fence()
+        view_ok = bool(torch.equal(win.local_view(0, size), want))
+        dst = torch.zeros(size, dtype=torch.uint8, device=dev)
+        s0 = st.snapshot()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            win.rget(peer, 0, dst).wait()
+        t_get = (time.perf_counter() - t0) / iters
+        d_get = _rma_paths(st.delta(s0))
+        get_ok = bool(torch.equal(dst, src))
+        win.fence()
+        res["sizes"][size] = {
+            "view_ok": view_ok, "get_ok": get_ok,
+            "put_paths": d_put, "get_paths": d_get,
+            "want_put": {"rma_put": iters * size},
+            "want_get": {"rma_get": iters * size},
+            "rput_flush_s": t_put, "rget_s": t_get,
+            "notify_one_way_s": _notify_pingpong(win, rank, src, iters)}
+        win.fence()
+    # a 1 MiB notified put, consumed in place: the receiver copies nothing
+    note = _payload(MiB, 8001, dev)
+    win.fence()
+    if rank == 0:
+        win.put_notify(1, 64, note)
+    else:
+        c0 = st.copied_bytes
+        win.wait_notify(0, timeout=60.0)
+        res["notify"] = {
+            "ok": bool(torch.equal(win.local_view(64, MiB), note)),
+            "receiver_copied": st.copied_bytes - c0}
+    win.fence()
+    # raccumulate: 1 MiB of float32 from both ranks into rank 0, integer
+    # valued so that any order of the adds gives the exact sum
+    n = MiB // 4
+    xs = [torch.randint(-1000, 1000, (n,), generator=torch.Generator(
+        device=dev).manual_seed(9000 + r), device=dev).float()
+        for r in range(2)]
+    if rank == 0:
+        win.put_array(0, 0, torch.zeros(n, device=dev))
+    win.fence()
+    for _ in range(RACC_ROUNDS):
+        win.raccumulate(0, 0, xs[rank]).wait()
+    win.fence()
+    got = win.get_array(0, 0, (n,), torch.float32)
+    want = RACC_ROUNDS * (xs[0] + xs[1])            # the sum on the card
+    res["raccumulate_ok"] = bool(got.device == want.device
+                                 and torch.equal(got, want))
+    win.fence()
+    # a window built without a communicator: its blocking accumulate of
+    # a CUDA operand reads and writes the segment through cellcopy, one
+    # launch each way, with no host copy in between
+    from repro_torch.core import Window
+    solo = Window(env.arena, f"smoke:solo{rank}", 1, 0, MiB, create=True)
+    solo.put_from(0, 0, torch.zeros(n, device=dev))
+    l0 = ops.LAUNCHES
+    for _ in range(SOLO_ACC_ROUNDS):
+        solo.accumulate(0, 0, xs[rank])
+    launched = ops.LAUNCHES - l0
+    got = torch.empty(n, device=dev)
+    solo.get_into(0, 0, got)
+    res["solo_accumulate"] = {
+        "ok": bool(torch.equal(got, SOLO_ACC_ROUNDS * xs[rank])),
+        "launches": launched, "want_launches": 2 * SOLO_ACC_ROUNDS}
+    solo.free()
+    # window collectives, 1 MiB a rank
+    shards = [_payload(MiB, 9100 + r, dev) for r in range(2)]
+    gathered = win.allgather(shards[rank])
+    res["allgather_ok"] = bool(gathered.device == shards[0].device
+                               and torch.equal(gathered, torch.cat(shards)))
+    arr = shards[0].clone() if rank == 0 else torch.zeros(
+        MiB, dtype=torch.uint8, device=dev)
+    win.bcast(arr, root=0)
+    res["bcast_ok"] = bool(torch.equal(arr, shards[0]))
+    win.fence()
+    # a passive-target epoch: lock_all, chunked rput, flush, unlock_all
+    epoch = _payload(MiB, 9200 + rank, dev)
+    win.lock_all()
+    req = win.rput(peer, 0, epoch, chunk_bytes=64 * 1024)
+    win.flush(peer)
+    win.unlock_all()
+    win.fence()
+    res["lock_all_ok"] = bool(req.done and torch.equal(
+        win.local_view(0, MiB), _payload(MiB, 9200 + peer, dev)))
+    win.free()
+    # a dynamic window: a PoolBuffer attached, rput and rget against it
+    dyn = c.win_create_dynamic("smoke:dyn")
+    buf = c.alloc_buffer(MiB)
+    addr = dyn.attach(buf)
+    addrs = c.allgather(np.asarray([addr], np.int64))
+    page = _payload(MiB, 9300 + rank, dev)
+    dyn.rput(peer, int(addrs[peer]), page).wait()
+    c.barrier()
+    back = torch.zeros(MiB, dtype=torch.uint8, device=dev)
+    dyn.rget(peer, int(addrs[peer]), back).wait()
+    res["dynamic_ok"] = bool(
+        torch.equal(buf.tensor(), _payload(MiB, 9300 + peer, dev))
+        and torch.equal(back, page))
+    c.barrier()
+    dyn.detach(addr)
+    buf.free()
+    dyn.free()
+    res["launches"] = ops.LAUNCHES
+    return res
+
+
+def serve_path(env) -> dict:
+    """One rank of the serving tier at the full cut: its report, its
+    seconds and its kernel launches."""
+    from repro_torch.kernels.cellcopy import ops
+    from repro_torch.serve import ServeConfig, serve_rank
+    ops.LAUNCHES = 0
+    t0 = time.perf_counter()
+    report = serve_rank(env, ServeConfig(**SERVE_TIER))
+    report["seconds"] = time.perf_counter() - t0
+    report["launches"] = ops.LAUNCHES
+    return report
+
+
+def check_window(ranks: list[dict], window_s: float) -> tuple:
+    """Hold the window phase's reports to its limits; returns (launches
+    per rank, one-sided latency table)."""
+    launches = [r["launches"] for r in ranks]
+    say(f"[window] 2 ranks: {window_s:.1f} s, cellcopy launches per rank "
+        f"{launches}")
+    if min(launches) <= 0:
+        fail(f"a rank never launched the kernel in the window phase: "
+             f"{launches}")
+    lat: dict = {}
+    for size in SIZES:
+        for r in ranks:
+            x = r["sizes"][size]
+            if not (x["view_ok"] and x["get_ok"]):
+                fail(f"window {size} B, rank {r['rank']}: bytes differ "
+                     f"(local_view {x['view_ok']}, rget {x['get_ok']})")
+            if x["put_paths"] != x["want_put"] \
+                    or x["get_paths"] != x["want_get"]:
+                fail(f"window {size} B, rank {r['rank']}: path bytes "
+                     f"{x['put_paths']} / {x['get_paths']}, want "
+                     f"{x['want_put']} / {x['want_get']}")
+        x = ranks[0]["sizes"][size]
+        lat[size] = {k[:-2] + "_us": x[k] * 1e6 for k in (
+            "rput_flush_s", "rget_s", "notify_one_way_s")}
+        lat[size]["rput_MBps"] = size / x["rput_flush_s"] / 1e6
+        lat[size]["rget_MBps"] = size / x["rget_s"] / 1e6
+    say(f"[window] all {len(SIZES)} sizes byte-exact through local_view "
+        f"and rget; rma_put and rma_get deltas equal the payload bytes")
+    note = ranks[1]["notify"]
+    if not note["ok"] or note["receiver_copied"] != 0:
+        fail(f"put_notify of 1 MiB: {note}")
+    say("[window] put_notify 1 MiB consumed in place, receiver copied 0 B")
+    for key, what in (("raccumulate_ok", f"{RACC_ROUNDS} raccumulates of "
+                       f"1 MiB float32 from both ranks equal the sum on the "
+                       f"card"),
+                      ("allgather_ok", "window allgather of 1 MiB a rank"),
+                      ("bcast_ok", "window bcast of 1 MiB"),
+                      ("lock_all_ok", "lock_all / flush / unlock_all"),
+                      ("dynamic_ok", "rput / rget on an attached "
+                       "PoolBuffer")):
+        if not all(r[key] for r in ranks):
+            fail(f"window phase: {what}: failed")
+        say(f"[window] {what}: ok")
+    for r in ranks:
+        acc = r["solo_accumulate"]
+        if not acc["ok"] or acc["launches"] != acc["want_launches"]:
+            fail(f"window phase, rank {r['rank']}: accumulate of a CUDA "
+                 f"operand on a window without a communicator: {acc}")
+    say(f"[window] {SOLO_ACC_ROUNDS} accumulates of a CUDA operand on a "
+        f"window without a communicator: exact, "
+        f"{ranks[0]['solo_accumulate']['launches']} cellcopy launches")
+    return launches, lat
+
+
+def check_copy_accounting(reports: list[dict]) -> list[str]:
+    """The serving tier's zero-receiver-drain contract, exact to the byte
+    (as ``benchmarks/serve_qps.check_copy_accounting`` states it): the
+    router, a pure control rank, counts nothing under ``rma_put``,
+    ``rma_get``, ``rndv_staged`` or ``rndv_posted``; every worker's
+    ``rma_put`` is its page fills plus 8 B per ``raccumulate``, its
+    ``rma_get`` its page drains plus 8 B per ``raccumulate``, and it
+    stages nothing."""
+    problems = []
+    rd = reports[0]["stats_delta"]["path_copied_bytes"]
+    for path in ("rma_put", "rma_get", "rndv_staged", "rndv_posted"):
+        if rd.get(path, 0):
+            problems.append(f"router counted {rd[path]} B under {path}")
+    for w in reports[1:]:
+        d = w["stats_delta"]["path_copied_bytes"]
+        racc = 8 * w["racc_calls"]
+        for path, want in (("rma_put", w["rput_bytes"] + racc),
+                           ("rma_get", w["rget_bytes"] + racc)):
+            if d.get(path, 0) != want:
+                problems.append(f"worker {w['rank']}: {path} "
+                                f"{d.get(path, 0)} B != {want} B")
+        for path in ("rndv_staged", "rndv_posted"):
+            if d.get(path, 0):
+                problems.append(f"worker {w['rank']}: {d[path]} B under "
+                                f"{path}")
+    return problems
+
+
+def check_serve(reports: list[dict], serve_s: float) -> tuple:
+    """Hold the serving tier's reports to its limits; returns (launches
+    per rank, the ``serve_tier`` figures)."""
+    router, workers = reports[0], reports[1:]
+    launches = [r["launches"] for r in reports]
+    say(f"[serve] {SERVE_RANKS} ranks: {serve_s:.1f} s, cellcopy launches "
+        f"per rank {launches}")
+    if launches[0]:
+        fail("the router (a control rank) launched the kernel")
+    if min(launches[1:]) <= 0:
+        fail(f"a worker never launched the kernel: {launches}")
+    problems = check_copy_accounting(reports)
+    if router["sessions"] != SERVE_TIER["sessions"]:
+        problems.append(f"{router['sessions']} of {SERVE_TIER['sessions']}"
+                        f" sessions done")
+    if router["bad_checksums"]:
+        problems.append(f"{router['bad_checksums']} bad checksums")
+    bad = sum(w["verify_failures"] for w in workers)
+    if bad:
+        problems.append(f"{bad} page verify failures")
+    if router["stats_tokens"] != router["tokens"]:
+        problems.append(f"raccumulated tokens {router['stats_tokens']} != "
+                        f"{router['tokens']}")
+    if problems:
+        fail("serving tier: " + "; ".join(problems))
+    say(f"[serve] {router['sessions']} sessions done, 0 bad checksums, 0 "
+        f"verify failures, stats_tokens == tokens == {router['tokens']}, "
+        f"copy accounting exact on every worker")
+    fig = {k: router[k] for k in ("sessions", "tokens", "qps", "p50_us",
+                                  "p99_us", "mean_us")}
+    fig.update({
+        "rput_bytes": sum(w["rput_bytes"] for w in workers),
+        "rget_bytes": sum(w["rget_bytes"] for w in workers),
+        "local_fills": sum(w["local_fills"] for w in workers),
+        "racc_calls": sum(w["racc_calls"] for w in workers),
+        "seconds": max(r["seconds"] for r in reports),
+        "phase_s": serve_s, "launches": launches})
+    return launches, fig
 
 
 # ---------------------------------------------------------------------------
@@ -443,8 +770,6 @@ def timings(pool) -> list[dict]:
     (16368 B at cell offset + 8, the first chunk after the 16 B message
     header) and 1 MiB device to device."""
     import torch
-
-    from repro_torch.kernels.cellcopy import ops, ref
     dev = torch.device("cuda")
     src = torch.randint(0, 256, (MiB,), dtype=torch.uint8, device=dev,
                         generator=torch.Generator(device=dev).manual_seed(3))
@@ -457,30 +782,46 @@ def timings(pool) -> list[dict]:
          CELL - 16, CELL - 16),
         ("device->device", MiB, d2d, src, 0, 2 * MiB),
     ]
-    rows = []
-    for name, n, dst, s, pcie_bytes, hbm_bytes in shapes:
-        n_cells = -(-n // CELL)
-        sums = torch.empty(n_cells, dtype=torch.uint32, device=dev)
-        kern, kern_issued = _time_ms(lambda: ops.copy_bytes(
-            dst.data_ptr(), s.data_ptr(), n, CELL, sums))
-        plain, plain_issued = _time_ms(
-            lambda: ref.copy_bytes_ref(dst, s, CELL))
-        lib, lib_issued = _time_ms(lambda: dst.copy_(s))
-        # each input read once, each output written once: the payload,
-        # plus 4 B of sum per cell into device memory
-        hbm = hbm_bytes + 4 * n_cells
-        bound = max(pcie_bytes / PCIE_BPS, hbm / HBM_BPS) * 1e3
-        plan = ops.launch_plan(n, CELL, dst.data_ptr() % 16,
-                               s.data_ptr() % 16)
-        rows.append({"shape": name, "bytes": n, "ms": kern,
-                     "plain_ms": plain, "library_ms": lib,
-                     "vs_copy_": kern / lib, "bound_ms": bound,
-                     "bound_link": "pcie" if pcie_bytes else "hbm",
-                     "GBps": n / kern / 1e6, "CTAs": plan["grid"],
-                     "cluster": plan["cluster"], "issued_ms": kern_issued,
-                     "plain_issued_ms": plain_issued,
-                     "library_issued_ms": lib_issued})
-    return rows
+    return [_copy_row(*shape) for shape in shapes]
+
+
+def page_timing(pool) -> dict:
+    """Kernel, plain version and ``Tensor.copy_`` at the serving tier's
+    page: 4096 B from device memory into the pool (a local page fill or
+    one ``rput`` of a page)."""
+    import torch
+    dev = torch.device("cuda")
+    page = torch.randint(0, 256, (4096,), dtype=torch.uint8, device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(4))
+    return _copy_row("device->pool serve page", 4096,
+                     pool.device_view(4 * MiB, 4096), page, 4096, 4096)
+
+
+def _copy_row(name, n, dst, s, pcie_bytes, hbm_bytes) -> dict:
+    import torch
+
+    from repro_torch.kernels.cellcopy import ops, ref
+    n_cells = -(-n // CELL)
+    sums = torch.empty(n_cells, dtype=torch.uint32, device=dst.device)
+    kern, kern_issued = _time_ms(lambda: ops.copy_bytes(
+        dst.data_ptr(), s.data_ptr(), n, CELL, sums))
+    plain, plain_issued = _time_ms(
+        lambda: ref.copy_bytes_ref(dst, s, CELL))
+    lib, lib_issued = _time_ms(lambda: dst.copy_(s))
+    # each input read once, each output written once: the payload,
+    # plus 4 B of sum per cell into device memory
+    hbm = hbm_bytes + 4 * n_cells
+    bound = max(pcie_bytes / PCIE_BPS, hbm / HBM_BPS) * 1e3
+    plan = ops.launch_plan(n, CELL, dst.data_ptr() % 16,
+                           s.data_ptr() % 16)
+    return {"shape": name, "bytes": n, "ms": kern,
+            "plain_ms": plain, "library_ms": lib,
+            "vs_copy_": kern / lib, "bound_ms": bound,
+            "bound_link": "pcie" if pcie_bytes else "hbm",
+            "GBps": n / kern / 1e6, "CTAs": plan["grid"],
+            "cluster": plan["cluster"], "issued_ms": kern_issued,
+            "plain_issued_ms": plain_issued,
+            "library_issued_ms": lib_issued}
 
 
 # ---------------------------------------------------------------------------
@@ -1236,6 +1577,28 @@ def main() -> None:
             fail("the parent launched kernels during the main path")
         launches, lat, per_msg_launches = check_main(ranks, main_s)
         rows = timings(pool)
+        rows.append(page_timing(pool))
+
+        # 3b. one-sided windows: counts to 0 just before, read just after
+        ops.LAUNCHES = 0
+        t0 = time.perf_counter()
+        wranks = run_processes(2, window_path, pool_bytes=POOL_BYTES,
+                               cell_size=CELL, device="cuda", timeout=300)
+        window_s = time.perf_counter() - t0
+        if ops.LAUNCHES:
+            fail("the parent launched kernels during the window phase")
+        win_launches, one_sided = check_window(wranks, window_s)
+
+        # 3c. the serving tier: counts to 0 just before, read just after
+        ops.LAUNCHES = 0
+        t0 = time.perf_counter()
+        sranks = run_processes(SERVE_RANKS, serve_path,
+                               pool_bytes=POOL_BYTES, cell_size=CELL,
+                               device="cuda", timeout=300)
+        serve_s = time.perf_counter() - t0
+        if ops.LAUNCHES:
+            fail("the parent launched kernels during the serve phase")
+        serve_launches, serve_tier = check_serve(sranks, serve_s)
     finally:
         pool.close()
         pool.unlink()
@@ -1255,11 +1618,14 @@ def main() -> None:
     for r in flash_rows + wkv_rows:
         say(f"[time] {json.dumps(r)}")
     head = rows[0]
+    by_path = {"message_plane": sum(launches),
+               "window": sum(win_launches), "serve": sum(serve_launches)}
     entries = [{
         "name": "cellcopy", "route": "cuda",
         "source": "src/repro_torch/csrc/cellcopy.cu",
         "replaces": "src/repro/kernels/cellcopy/kernel.py:40",
-        "launches": sum(launches), "mismatches": check.mismatches,
+        "launches": sum(by_path.values()), "launches_by_path": by_path,
+        "mismatches": check.mismatches,
         "max_abs_err": check.max_abs_err,
         "shape": head["shape"] + " 1 MiB, 16 KiB cells",
         "ms": head["ms"], "kernel_ms": head["ms"],
@@ -1291,6 +1657,8 @@ def main() -> None:
             "build": flash_build if name == "flash_attention" else {
                 k: v for k, v in kernel_build.items() if "wkv6" in k}})
     say(json.dumps({"one_way_latency_bandwidth": lat}))
+    say(json.dumps({"one_sided_latency_bandwidth": one_sided}))
+    say(json.dumps({"serve_tier": serve_tier}))
     say(json.dumps({"serving": {a: {k: m[k] for k in (
         "serve", "decode_profile", "prefill", "f32_prefill_vs_decode",
         "init_s", "param_GB")}

@@ -1,4 +1,5 @@
-"""cMPI core in PyTorch: the two-sided message plane.
+"""cMPI core in PyTorch: the two-sided message plane and one-sided
+windows.
 
 The same modules as the JAX package's ``repro.core``, ported: the wire
 format (arena, queue cells, staging objects, matchbox entries), the three
@@ -21,12 +22,14 @@ mapped into the GPU, and device bytes enter and leave it through the
   sched       — collective schedule IR (Send/Recv/Reduce/Copy DAGs)
   progress    — the shared progress engine; ReduceOp runs as a torch op
   collectives — the collective launch layer over the schedule engine
+  rma         — one-sided windows (``comm.win_allocate``,
+                ``win_create_dynamic``): put/get, rput/rget/raccumulate,
+                notified access, window collectives, fence/PSCW/locks
   runtime     — thread and process (``spawn``) runtimes
   trace       — flight recorder + metrics registry
   profile     — the measured machine profile behind ``tuning="auto"``
 
-One-sided windows (``rma``) and the deprecated pre-v2 names are not part
-of this package yet.
+The deprecated pre-v2 names are not part of this package yet.
 """
 from repro_torch.core.arena import (PAPER_ARENA, Arena, ArenaFullError,
                                     ObjHandle)
@@ -43,6 +46,7 @@ from repro_torch.core.pt2pt import (ANY_TAG, DEFAULT_MB_SLOTS,
                                     PoolView, Request)
 from repro_torch.core.ringqueue import (DEFAULT_CELL_SIZE, OPTIMAL_CELL_SIZE,
                                         QueueMatrix, SPSCQueue)
+from repro_torch.core.rma import DynamicWindow, Window
 from repro_torch.core.runtime import RankEnv, run_processes, run_threads
 from repro_torch.core.sched import (BufRef, CopyOp, RecvOp, ReduceOp,
                                     Schedule, SendOp, compile_schedule)

@@ -40,7 +40,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core.pool import as_u8, copy_bytes_into
+from repro_torch.core.pool import as_tensor, as_u8, copy_bytes_into, nbytes
 from repro_torch.core.progress import (CollRequest, _HeapBufs, _ResidentBufs,
                                  _SchedExec)
 from repro_torch.core.pt2pt import Communicator
@@ -140,22 +140,12 @@ def shards_to_chunk_order(flat: torch.Tensor, n: int) -> torch.Tensor:
     return torch.cat([parts[(c - 1) % n] for c in range(n)])
 
 
-def as_tensor(arr) -> torch.Tensor:
-    """A contiguous tensor view of a collective's input (numpy arrays and
-    scalars become CPU tensors without a copy where possible)."""
-    return torch.as_tensor(arr).contiguous()
-
-
 def take(view: torch.Tensor) -> torch.Tensor:
     """A private copy of a result view (a slot or a pool window). On the
     card the bytes move through the cellcopy kernel."""
     out = torch.empty(view.shape, dtype=view.dtype, device=view.device)
     copy_bytes_into(as_u8(out), as_u8(view))
     return out
-
-
-def nbytes(t: torch.Tensor) -> int:
-    return t.numel() * t.element_size()
 
 
 # --------------------------------------------------------------------------
@@ -178,9 +168,9 @@ def _launch(comm: Communicator, sched: Schedule, bufs, dtype, op,
             rma_path: str = "rma_coll") -> CollRequest:
     """Bind a compiled schedule to its buffers and hand it to the shared
     progress engine. ``win`` attaches an RMA window for schedules with
-    Put/Get nodes (the one-sided collectives, not ported yet); their
-    payload bytes land in the ``rma_path``
-    ``ProtocolStats`` bucket."""
+    Put/Get nodes (the one-sided collectives launched from
+    ``repro_torch.core.rma``); their payload bytes land in the
+    ``rma_path`` ``ProtocolStats`` bucket."""
     ex = _SchedExec(comm, sched, bufs, comm._alloc_coll_tags(),
                     dtype=dtype, op=op, finalize=finalize, win=win,
                     win_disp=win_disp, rma_path=rma_path)

@@ -570,8 +570,8 @@ class PersistentCollRequest:
 class Comm(Communicator):
     """First-class cMPI communicator (the v2 public API): method
     collectives, ``split``/``dup``, persistent requests, chunking and
-    ``tuning="auto"``. The one-sided window surface of the JAX package's
-    ``Comm`` (``win_allocate`` and friends) is not ported yet."""
+    ``tuning="auto"``, and the one-sided windows (``win_allocate``,
+    ``win_create_dynamic``; ``core/rma``)."""
 
     def __init__(self, arena: Arena, rank: int, size: int, *,
                  cell_size: int = DEFAULT_CELL_SIZE, n_cells: int = 8,

@@ -72,12 +72,24 @@ def as_u8(buf):
     return mv
 
 
+def as_tensor(arr) -> torch.Tensor:
+    """A contiguous tensor of an operand (numpy arrays and scalars become
+    CPU tensors without a copy where possible)."""
+    return torch.as_tensor(arr).contiguous()
+
+
+def nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
 def readonly(v) -> bool:
     """Whether a view from ``as_u8`` refuses writes (tensors never do)."""
     return isinstance(v, memoryview) and v.readonly
 
 
 def _host_tensor(mv: memoryview) -> torch.Tensor:
+    if not mv.readonly:
+        return torch.frombuffer(mv, dtype=torch.uint8)
     with warnings.catch_warnings():
         # read-only host bytes (parked payloads) are only ever read here
         warnings.simplefilter("ignore", UserWarning)
@@ -195,6 +207,18 @@ class Pool:
         """GPU address of pool byte ``off`` (range-checked for ``n``
         bytes); only pools mapped into a GPU have one."""
         raise TypeError(f"{type(self).__name__} is not mapped into a GPU")
+
+    def tensor_view(self, off: int, n: int, device) -> torch.Tensor:
+        """uint8 tensor aliasing [off, off+n) for a comm on ``device``:
+        the device window on the card, the host window otherwise.
+        Zero-copy either way; ``TypeError`` where the pool has no such
+        window."""
+        if torch.device(device).type == "cuda":
+            return self.device_view(off, n)
+        mv = self.memview(off, n)
+        if not n:
+            return torch.empty(0, dtype=torch.uint8)
+        return torch.frombuffer(mv, dtype=torch.uint8)
 
     def device_view(self, off: int, n: int) -> torch.Tensor:
         """CUDA uint8 tensor aliasing [off, off+n) of the mapped pool."""

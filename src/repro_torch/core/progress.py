@@ -327,7 +327,10 @@ class _SchedExec:
     POSTED Request from the round-synchronized pre-post handshake; those
     nodes skip issue entirely and complete when their request does.
     ``finalize`` runs once after the last node retires and produces
-    ``result``.
+    ``result``; ``on_abort`` runs once if the execution fails instead (a
+    node's request fails, or a node raises as it is issued: a failed
+    launch on the card), so a resource held across the execution (the
+    window lock of ``raccumulate``) is released either way.
     """
 
     def __init__(self, comm, sched: Schedule, bufs, tag_base: int,
@@ -337,7 +340,8 @@ class _SchedExec:
                  await_claim: float = 0.0, win=None, win_disp: int = 0,
                  rma_path: str = "rma_coll", rma_budget: int = 0,
                  rma_path_put: Optional[str] = None,
-                 rma_path_get: Optional[str] = None):
+                 rma_path_get: Optional[str] = None,
+                 on_abort: Optional[Callable] = None):
         self.comm = comm
         self.sched = sched
         self.bufs = bufs
@@ -366,6 +370,7 @@ class _SchedExec:
         # falling back to staged — see Communicator.isend(_await_claim)
         self.await_claim = await_claim
         self._finalize = finalize
+        self._on_abort = on_abort
         self.finished = False
         self.result = None
         self.error: Optional[BaseException] = None
@@ -428,6 +433,9 @@ class _SchedExec:
 
     def _complete(self) -> None:
         self.finished = True
+        # the finalizer now owns the release: an error raised from here
+        # on must not run on_abort a second time
+        self._on_abort = None
         tr = self._tr
         if tr.enabled:
             tr.emit(EV_SCHED_END, self._trace_exec)
@@ -459,6 +467,9 @@ class _SchedExec:
             self.comm._engine.colls.remove(self)
         except ValueError:
             pass
+        if self._on_abort is not None:
+            cb, self._on_abort = self._on_abort, None
+            cb()
 
     def advance(self) -> None:
         """Issue every ready node. Local nodes (reduce/copy) retire
@@ -485,40 +496,45 @@ class _SchedExec:
                 continue     # pre-posted: completes via its callback
             if tr.enabled:
                 tr.emit(EV_SCHED_ISSUE, self._trace_exec, idx)
-            if isinstance(nd, RecvOp):
-                req = self.comm.irecv_into(
-                    nd.peer, self.bufs.recv_dest(nd.buf),
-                    tag=self.tag_base + nd.round, _internal=True)
-                self._watch(idx, req)
-            elif isinstance(nd, SendOp):
-                req = self.comm.isend(nd.peer,
-                                      self.bufs.send_payload(nd.buf),
-                                      tag=self.tag_base + nd.round,
-                                      _internal=True,
-                                      _await_claim=self.await_claim)
-                self._watch(idx, req)
-            elif isinstance(nd, ReduceOp):
-                dst = self.bufs.ndview(nd.dst, self.dtype)
-                src = self.bufs.ndview(nd.src, self.dtype)
-                self.op(dst, src, out=dst)
-                if is_device(dst):
-                    # the next send publishes these bytes from the pool
-                    torch.cuda.current_stream().synchronize()
-                self._node_done(idx)
-            elif isinstance(nd, CopyOp):
-                _copy(self.bufs.ndview(nd.dst, torch.uint8),
-                      self.bufs.ndview(nd.src, torch.uint8))
-                self._node_done(idx)
-            elif isinstance(nd, PutOp):
-                self.win._exec_put(nd.target, self.win_disp + nd.disp,
-                                   self.bufs.ndview(nd.buf, torch.uint8),
-                                   path=self.rma_path_put)
-                self._node_done(idx)
-            elif isinstance(nd, GetOp):
-                self.win._exec_get(nd.target, self.win_disp + nd.disp,
-                                   self.bufs.ndview(nd.buf, torch.uint8),
-                                   path=self.rma_path_get)
-                self._node_done(idx)
+            try:
+                if isinstance(nd, RecvOp):
+                    req = self.comm.irecv_into(
+                        nd.peer, self.bufs.recv_dest(nd.buf),
+                        tag=self.tag_base + nd.round, _internal=True)
+                    self._watch(idx, req)
+                elif isinstance(nd, SendOp):
+                    req = self.comm.isend(nd.peer,
+                                          self.bufs.send_payload(nd.buf),
+                                          tag=self.tag_base + nd.round,
+                                          _internal=True,
+                                          _await_claim=self.await_claim)
+                    self._watch(idx, req)
+                elif isinstance(nd, ReduceOp):
+                    dst = self.bufs.ndview(nd.dst, self.dtype)
+                    src = self.bufs.ndview(nd.src, self.dtype)
+                    self.op(dst, src, out=dst)
+                    if is_device(dst):
+                        # the next send publishes these bytes from the pool
+                        torch.cuda.current_stream().synchronize()
+                    self._node_done(idx)
+                elif isinstance(nd, CopyOp):
+                    _copy(self.bufs.ndview(nd.dst, torch.uint8),
+                          self.bufs.ndview(nd.src, torch.uint8))
+                    self._node_done(idx)
+                elif isinstance(nd, PutOp):
+                    self.win._exec_put(nd.target, self.win_disp + nd.disp,
+                                       self.bufs.ndview(nd.buf, torch.uint8),
+                                       path=self.rma_path_put)
+                    self._node_done(idx)
+                elif isinstance(nd, GetOp):
+                    self.win._exec_get(nd.target, self.win_disp + nd.disp,
+                                       self.bufs.ndview(nd.buf, torch.uint8),
+                                       path=self.rma_path_get)
+                    self._node_done(idx)
+            except Exception as e:
+                # a node that cannot be issued fails the whole execution
+                self._abort(e)
+                raise
 
 
 _DEFAULT_TIMEOUT = object()       # sentinel: scale with schedule depth

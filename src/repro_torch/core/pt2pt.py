@@ -98,6 +98,7 @@ from repro_torch.core.progress import waitany as _waitany
 from repro_torch.core.ringqueue import (DEFAULT_CELL_SIZE, FLAG_FIRST, FLAG_LAST,
                                   FLAG_POSTED, FLAG_RNDV,
                                   TAG_RESERVED_BASE, QueueMatrix)
+from repro_torch.core.rma import DynamicWindow, Window
 from repro_torch.core.sync import SeqBarrier
 from repro_torch.core.trace import (EV_MB_CLAIM, EV_MB_CONSUME, EV_MB_POST,
                               EV_MB_PROMOTE, EV_MB_RETRACT, EV_MB_SPILL,
@@ -307,12 +308,8 @@ class PoolBuffer:
         """uint8 tensor aliasing the payload on the communicator's device:
         the pool's device window on a CUDA communicator, the host window
         otherwise. Zero-copy either way."""
-        pool = self._comm.arena.pool
-        if self._comm.device.type == "cuda":
-            return pool.device_view(self.offset, self.nbytes)
-        if not self.nbytes:
-            return torch.empty(0, dtype=torch.uint8)
-        return torch.frombuffer(self.view(), dtype=torch.uint8)
+        return self._comm.arena.pool.tensor_view(self.offset, self.nbytes,
+                                                 self._comm.device)
 
     def write(self, data, off: int = 0) -> None:
         """Protocol-correct fill (valid on every pool mode)."""
@@ -1563,3 +1560,50 @@ class Communicator:
     # ------------------------------------------------------------------
     def barrier(self) -> None:
         self._barrier.wait()
+
+    def _collective_window(self, make):
+        """Collective window creation: rank 0 creates (``make(True)``),
+        the others open-poll until the objects exist, then a barrier."""
+        if self.rank == 0:
+            w = make(True)
+        else:
+            t0 = time.monotonic()
+            while True:
+                try:
+                    w = make(False)
+                    break
+                except FileNotFoundError:
+                    if time.monotonic() - t0 > 30.0:
+                        raise
+                    time.sleep(0.0005)
+        self.barrier()
+        return w
+
+    def win_allocate(self, name: str, win_size: int) -> Window:
+        """Collective window creation: root creates, others open-poll.
+
+        The window is bound to this communicator, enabling the full RMA
+        v2 surface: request-based ``rput``/``rget`` (engine-pumped,
+        composable with pt2pt requests in ``waitall``), notified access
+        (``put_notify``/``wait_notify``), passive-target
+        ``lock_all``/``flush``, and the schedule-compiled window
+        collectives (``Window.allgather``/``bcast``). Every RMA byte is
+        accounted under ``stats().path_copied_bytes["rma_*"]``."""
+        return self._collective_window(lambda create: Window(
+            self.arena, name, self.size, self.rank, win_size,
+            create=create, comm=self))
+
+    def win_create_dynamic(self, name: str,
+                           attach_slots: int = 32) -> DynamicWindow:
+        """Collective MPI_Win_create_dynamic: a window with no backing
+        arena object. Each rank ``attach``-es pool-resident buffers
+        (``PoolBuffer``/``PoolView``/``ObjHandle``) and peers address
+        them by the ABSOLUTE pool offset ``attach`` returned — an
+        existing KV page is served one-sided without copying it into a
+        window arena, and attach/detach themselves move zero payload
+        bytes. ``attach_slots`` bounds the per-rank live-region count
+        (it sizes the shared attach table, so pass the same value on
+        every rank)."""
+        return self._collective_window(lambda create: DynamicWindow(
+            self.arena, name, self.size, self.rank, create=create,
+            comm=self, attach_slots=attach_slots))

@@ -6,8 +6,13 @@ published one; both run on the card.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \\
       --preset full --batch 4 --prompt-len 128 --gen 32
 
-The distributed serve tier (``--ranks``) needs the port of ``serve/``
-and is not ported yet (``ROADMAP.md`` Queue 1).
+``--ranks N`` (N > 1) runs the distributed serve tier instead: one
+router and N - 1 workers over one communicator on the card
+(``repro_torch.serve``), ``--sessions`` open-loop Poisson arrivals at
+``--rate`` per second; ``--arch`` is then not needed:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --ranks 4 \\
+      --sessions 2000 --rate 1500
 """
 from __future__ import annotations
 
@@ -19,7 +24,6 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.models import lm
-from repro_torch.models.blocks import unported
 
 
 def _sync(device: torch.device) -> None:
@@ -42,6 +46,8 @@ def serve_batch(cfg, *, batch: int, prompt_len: int, gen: int,
     if params is None:
         params = lm.init(cfg, seed, device=device)
     rng = np.random.default_rng(seed)
+    # every position below is < cache_len: decode_step does not read a
+    # CUDA pos back to check it
     cache_len = prompt_len + gen
     prompts = torch.from_numpy(rng.integers(
         0, cfg.vocab_size, size=(batch, prompt_len), dtype=np.int32)
@@ -84,25 +90,45 @@ def serve_batch(cfg, *, batch: int, prompt_len: int, gen: int,
             "prefill_s": t_prefill, "decode_s": t_decode}
 
 
-def serve_distributed(**kw) -> dict:
-    raise unported("the distributed serve tier (serve_distributed, "
-                   "--ranks)", "Queue 1, serve/")
+def serve_distributed(*, ranks: int = 3, sessions: int = 32,
+                      rate: float = 400.0, seed: int = 0,
+                      quiet: bool = False, device="cuda") -> dict:
+    """Run the multi-rank serve tier (router + workers over one Comm,
+    on the card unless ``device="cpu"``) and return the router's
+    report. Thin wrapper over ``repro_torch.serve.run_serve``."""
+    from repro_torch.serve import ServeConfig, run_serve
+    cfg = ServeConfig(sessions=sessions, rate=rate, seed=seed)
+    reports = run_serve(cfg, ranks=ranks, device=device)
+    router = reports[0]
+    if not quiet:
+        print(f"[serve] {router['sessions']} sessions on {ranks} ranks "
+              f"({ranks - 1} workers): qps {router['qps']:.1f}, "
+              f"p50 {router['p50_us']:.0f} us, "
+              f"p99 {router['p99_us']:.0f} us")
+    return router
 
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", default=None)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=32)
     ap.add_argument("--preset", default="cpu-smoke",
                     choices=["cpu-smoke", "full"])
     ap.add_argument("--ranks", type=int, default=0,
-                    help="> 1: the distributed serve tier (not ported)")
+                    help="> 1: run the distributed serve tier instead "
+                         "of the single-process driver")
+    ap.add_argument("--sessions", type=int, default=32)
+    ap.add_argument("--rate", type=float, default=400.0)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     if args.ranks > 1:
-        serve_distributed(ranks=args.ranks, seed=args.seed)
+        serve_distributed(ranks=args.ranks, sessions=args.sessions,
+                          rate=args.rate, seed=args.seed)
+        return
+    if args.arch is None:
+        ap.error("--arch is required for the single-process driver")
     cfg = get_config(args.arch)
     if args.preset == "cpu-smoke":
         cfg = cfg.reduced()

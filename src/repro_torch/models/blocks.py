@@ -178,15 +178,41 @@ def _chunked_attention(q, k, v, causal: bool, q_chunk: int, kv_chunk: int):
     return torch.cat(outs, dim=1).to(q.dtype)
 
 
+def check_kv_room(pos, cache_len: int) -> None:
+    """Refuse a decode position at or past the end of the KV cache.
+
+    The JAX package does not check: there a position past the cache
+    silently drops the new token's K/V under ``kv_update="onehot"`` (the
+    one-hot of an out-of-range class is all zeros) and, under ``"dus"``,
+    clamps the update and overwrites the last slot. Either corrupts the
+    cache, so the port raises ``ValueError`` instead.
+
+    Only a ``pos`` on the CPU is checked: reading a CUDA ``pos`` would
+    make the host wait for the card on every decode step. A caller that
+    builds ``pos`` on the card bounds it on the host (``serve_batch``
+    sizes its cache to ``prompt_len + gen``); a CUDA ``pos`` past the
+    cache fails the indexed write with a device-side assert instead."""
+    if pos.is_cuda:
+        return
+    if pos.numel() and int(pos.max()) >= cache_len:
+        raise ValueError(
+            f"decode position {int(pos.max())} is past the KV cache of "
+            f"length {cache_len}: allocate a longer cache "
+            f"(decode_state_init's cache_len)")
+
+
 def attn_apply(params: Params, cfg: ModelConfig, x, positions, *,
                ctx=None, cache=None, cache_len=None, dist=None):
     """Causal self-attention.
 
     x: (B, S, D). cache: optional dict {k: (B, KV, Smax, Dh), v: ...} for
     decode; when given, S must be 1 and ``cache_len`` (B,) gives the
-    valid prefix length. The cache is updated in place (the JAX package
-    returns a new one): the one-hot update keeps its add semantics, the
-    ``dus`` update is an indexed write. Returns (out, cache).
+    valid prefix length, which must be < Smax: ``lm.decode_step`` checks
+    that once per step for a CPU ``pos`` (``check_kv_room``) and raises
+    ``ValueError`` where the JAX package drops or clamps the update. The
+    cache is updated in place (the JAX package returns a new one): the
+    one-hot update keeps its add semantics, the ``dus`` update is an
+    indexed write. Returns (out, cache).
     """
     if ctx is not None:
         raise unported("cross-attention (cross_attn)",

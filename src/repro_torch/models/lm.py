@@ -277,8 +277,16 @@ def decode_step(params: Params, cfg: ModelConfig, state, batch, pos, *,
 
     The KV caches and recurrent states in ``state`` are updated in place
     to save memory (the JAX package returns new ones); the same ``state``
-    is returned. Returns (logits (B, vocab) f32, state)."""
+    is returned. Returns (logits (B, vocab) f32, state).
+
+    A CPU ``pos`` at or past the KV cache's length raises ``ValueError``
+    (``blocks.check_kv_room``), where the JAX package silently drops or
+    clamps the cache update. A CUDA ``pos`` is not read on the host,
+    which would cost a sync per step: its caller keeps it in range."""
     _check_supported(cfg)
+    kv = next((st["kv"]["k"] for st in state if "kv" in st), None)
+    if kv is not None:
+        B.check_kv_room(pos, kv.shape[-2])
     x = _embed_tokens(params, cfg, batch, dist)
     positions = pos[:, None]
     for g in range(cfg.n_groups):

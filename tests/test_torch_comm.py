@@ -233,6 +233,131 @@ def test_collectives_match_reference(n):
     assert port == ref
 
 
+def _bytes(pkg, y) -> bytes:
+    return pkg.np(y).tobytes()
+
+
+def _split_dup(env, pkg):
+    c, r = env.comm, env.rank
+    sub = c.split(r % 2, key=-r)             # reversed order in each half
+    none = c.split(None if r == 0 else 1)
+    d = c.dup()
+    return (sub.size, sub.rank,
+            _bytes(pkg, sub.allreduce(pkg.arr(_x(r, 700)))),
+            none is None,
+            _bytes(pkg, d.allreduce(pkg.arr(_x(r, 300)), algo="ring")),
+            _bytes(pkg, c.allreduce(pkg.arr(_x(r, 300)), algo="ring")))
+
+
+def _alltoall(env, pkg):
+    c, r, n = env.comm, env.rank, env.size
+    blocks = [pkg.arr(np.arange(9, dtype=np.int32) * 100 + 10 * r + j)
+              for j in range(n)]
+    return [_bytes(pkg, b) for b in c.alltoall(blocks)]
+
+
+def _chunked(env, pkg):
+    c, r = env.comm, env.rank
+    return (_bytes(pkg, c.iallreduce(pkg.arr(_x(r)), chunk_bytes=4096)
+                   .wait()),
+            _bytes(pkg, c.iallreduce(pkg.arr(_x(r)), algo="ring",
+                                     chunk_bytes="auto").wait()),
+            _bytes(pkg, c.reduce_scatter(pkg.arr(_x(r, 1001)),
+                                         chunk_bytes=2048)),
+            _bytes(pkg, c.allgather(pkg.arr(_x(r, 1000)),
+                                    chunk_bytes=1024)))
+
+
+def _hier(env, pkg):
+    return _bytes(pkg, env.comm.ihier_allreduce(
+        pkg.arr(_x(env.rank, 2000)), group_size=2).wait())
+
+
+def _persistent_bcast_allgather(env, pkg, *, rounds=3):
+    c, r = env.comm, env.rank
+    x = pkg.arr(np.zeros(500))
+    breq = c.bcast_init(x, root=1)
+    shard = pkg.arr(np.zeros(40, np.int64))
+    greq = c.allgather_init(shard, algo="ring")
+    outs = []
+    for i in range(rounds):
+        if r == 1:
+            x[:] = pkg.arr(_x(i, 500))
+        outs.append(_bytes(pkg, breq.start().wait()))
+        shard[:] = pkg.arr(np.arange(40, dtype=np.int64) + 1000 * i + r)
+        outs.append(_bytes(pkg, greq.start().wait()))
+    breq.free()
+    greq.free()
+    return outs
+
+
+@pytest.mark.parametrize("n", [3, 4])
+@pytest.mark.parametrize("prog", [_split_dup, _alltoall, _chunked, _hier,
+                                  _persistent_bcast_allgather],
+                         ids=lambda f: f.__name__.strip("_"))
+def test_more_collectives_match_reference(prog, n):
+    """Results only: which rank of a sub-communicator takes a
+    rendezvous copy depends on timing, in both packages, so the
+    per-rank ProtocolStats splits are not compared here."""
+    ref, port = both(n, prog)
+    assert port == ref
+
+
+def _cancel(env, pkg):
+    """A posted persistent receive cancelled and freed, then a plain
+    exchange on the same pair still matches in order."""
+    c, r = env.comm, env.rank
+    out = []
+    if r == 1:
+        req = c.recv_init(0, pkg.arr(np.zeros(64, np.uint8)), tag=3)
+        req.start()
+        req.cancel()
+        req.free()
+        out.append(len(c._mb_records))
+    c.barrier()
+    if r == 0:
+        c.send(1, pkg.arr(_data(64, 5)), tag=3)
+    else:
+        got = pkg.arr(np.zeros(64, np.uint8))
+        c.recv_into(0, got, tag=3)
+        out.append(_bytes(pkg, got))
+    c.barrier()
+    return out
+
+
+def test_persistent_cancel_matches_reference():
+    ref, port = both(2, _cancel)
+    assert port == ref
+    assert port[1] == [0, _data(64, 5).tobytes()]
+
+
+def _retune(env, pkg, *, path):
+    """``tuning="auto"`` without a profile, then ``retune`` on every rank
+    once one exists: the status and the agreed constants."""
+    c = env.comm
+    before = dict(c.tuning_status)
+    after = c.retune(path)
+    out = _bytes(pkg, c.allreduce(pkg.arr(_x(env.rank, 40_000)),
+                                  chunk_bytes="auto"))
+    return before, after, c.eager_threshold, c._chunk_base, out
+
+
+def test_retune_and_tuning_status_match_reference(tmp_path):
+    from repro.core import profile as ref_prof
+    path = ref_prof.write_profile(
+        {"eager_crossover_bytes": 4096, "copy_knee_bytes": 256 * 1024,
+         "best_chunk_bytes": 1 << 20, "cache_gbps": 80.0,
+         "dram_gbps": 20.0, "strip_scan_us_per_slot": 2.5,
+         "spill_promote_us": 20.0, "yield_cost_us": 0.5},
+        tmp_path / "profile.json")
+    kw = {"tuning": "auto", "profile_path": str(tmp_path / "missing.json")}
+    prog = functools.partial(_retune, path=str(path))
+    ref, port = both(3, prog, comm_kw=kw)
+    assert port == ref
+    before, after = port[0][:2]
+    assert before["mode"] == "heuristic" and after["mode"] == "profile"
+
+
 def _persistent(env, pkg, *, rounds=4):
     c = env.comm
     x = pkg.arr(np.zeros(MiB // 8))

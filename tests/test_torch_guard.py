@@ -38,6 +38,13 @@ def test_port_imports_neither_jax_nor_repro(path):
     assert not bad, f"{path.name} imports {bad}"
 
 
+def test_import_check_covers_windows_and_serving():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert "src/repro_torch/core/rma.py" in names
+    assert {f"src/repro_torch/serve/{m}.py" for m in (
+        "__init__", "wire", "pages", "router", "worker", "service")} <= names
+
+
 def _no_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default runs there")
@@ -56,6 +63,30 @@ def test_runtimes_default_to_the_card():
         run_threads(2, lambda env: None)
     with pytest.raises(RuntimeError, match="CUDA"):
         run_processes(2, print)
+
+
+def test_serving_tier_defaults_to_the_card():
+    _no_card()
+    from repro_torch.launch.serve import serve_distributed
+    from repro_torch.serve import ServeConfig, run_serve
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_serve(ServeConfig(sessions=2), ranks=2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve_distributed(ranks=2, sessions=2, quiet=True)
+    router = serve_distributed(ranks=2, sessions=2, rate=1000.0,
+                               quiet=True, device="cpu")
+    assert router["sessions"] == 2 and router["bad_checksums"] == 0
+
+
+def test_serve_cli_takes_ranks_without_arch():
+    """``--ranks`` runs the tier (on the card, so it raises here) and
+    needs no ``--arch``; the single-process driver does."""
+    _no_card()
+    from repro_torch.launch.serve import main
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["--ranks", "2", "--sessions", "2", "--rate", "100"])
+    with pytest.raises(SystemExit):
+        main([])
 
 
 def _device_bytes(n: int) -> torch.Tensor:

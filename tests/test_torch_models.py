@@ -186,3 +186,37 @@ def test_unported_blocks_raise(arch):
     cfg = get_config(arch).reduced()
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         lm.init(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("kv_update,dtype,bound",
+                         [("onehot", "float32", 1e-6),
+                          ("dus", "bfloat16", 1e-2)])
+def test_decode_past_the_cache_raises(kv_update, dtype, bound):
+    """Steps 0-3 into a 4-slot cache match the JAX package within
+    ``bound`` (absolute): the largest errors read on these inputs on the
+    CPU were 2.6e-7 (f32, onehot; the frameworks differ in summation
+    order only) and 4.9e-3 (bf16, dus; 2.5 bf16 ulps at the logits'
+    0.36, as the two round bf16 at different places), and each bound
+    sits about 2-4x above its reading. Step 4 is past the cache,
+    where the JAX package drops (onehot) or clamps (dus) the update and
+    corrupts the cache, and the port raises a ValueError that names the
+    cache length."""
+    jcfg, cfg = _cfgs("smollm-135m", compute_dtype=dtype,
+                      kv_update=kv_update)
+    jp, tp = _weights(jcfg, cfg)
+    toks = _tokens(cfg, b=2, s=5)
+    jst = jlm.decode_state_init(jcfg, 2, 4)
+    tst = lm.decode_state_init(cfg, 2, 4, device="cpu")
+    for i in range(4):
+        jl, jst = jlm.decode_step(jp, jcfg, jst,
+                                  {"tokens": jnp.asarray(toks[:, i:i + 1])},
+                                  jnp.full((2,), i, jnp.int32))
+        tl, tst = lm.decode_step(tp, cfg, tst,
+                                 {"tokens": torch.from_numpy(
+                                     toks[:, i:i + 1])},
+                                 torch.full((2,), i, dtype=torch.int32))
+        err = np.abs(tl.float().numpy() - np.asarray(jl, np.float32)).max()
+        assert err <= bound, (i, err)
+    with pytest.raises(ValueError, match="length 4"):
+        lm.decode_step(tp, cfg, tst, {"tokens": torch.from_numpy(
+            toks[:, 4:5])}, torch.full((2,), 4, dtype=torch.int32))
