@@ -68,21 +68,35 @@ Phases, each of which fails the run on error:
            DONE frames', the copy accounting of
            ``serve_qps.check_copy_accounting`` exact, every worker
            launched the kernel.
-4. model   llama3-8b, then rwkv6-3b, at full width and depth with random
-           f32 weights from a seed, bf16 compute: ``serve_batch`` (batch
-           4, 128-token prompts, 32 new tokens), ``lm.prefill`` on the
-           same prompts and on one 4096-token prompt, each prefill
-           launching its kernel once per layer; one decode step's wall
-           and device time (``torch.profiler``); then, in f32 compute
-           with TF32 off, prefill (timed, twice) and its last-position
-           logits against the teacher-forced decode's (which runs no
-           kernel) within 1e-3 * max|logit|.
+4. model   one model at a time, freed before the next: llama3-8b,
+           rwkv6-3b, granite-moe-1b-a400m (MoE, 32 experts top-8) and
+           musicgen-large (frames frontend) at full width and depth;
+           llama-3.2-vision-90b (cross-attention over 1024 context
+           tokens) cut to one pattern group of 5 layers, and
+           jamba-1.5-large-398b (Mamba + MoE top-2) cut to one pattern
+           group of 8 layers and 4 experts with bf16 parameters (``CUTS``;
+           each model's output lists its cuts as ``reduced``). Random
+           weights from seed 0 (f32 unless cut), bf16 compute:
+           ``serve_batch`` (batch 4, 128-token prompts, 32 new tokens;
+           no kernel launch), ``lm.prefill`` on the same prompts and on
+           one 4096-token prompt (musicgen on their embedding rows as
+           frames, vision with a seeded context), each prefill launching
+           ``flash_attention`` once per self-attention layer and
+           ``wkv6`` once per rwkv6 layer; one decode step's wall and
+           device time (``torch.profiler``); then, in f32 compute with
+           TF32 off, prefill (timed, twice) and its last-position logits
+           against the teacher-forced decode's (which runs no kernel)
+           within 1e-3 * max|logit| (MoE at capacity factor 8, so that
+           neither grouping drops a token; vision with each
+           cross-attention layer's decode cache filled with the
+           context's K and V); peak card memory under 80 GB.
 5. report  the ``kernels`` JSON line (times at the main paths' shapes,
            ``cellcopy``'s beside ``Tensor.copy_`` (one at the serving
-           tier's 4096 B page), its launches per path, ``wkv6``'s in cycles
-           per token, and the f32 flash kernel at the parity prefill's
-           shape and at the long prompt, beside its FMA and split-TF32
-           bounds),
+           tier's 4096 B page), its launches per path, ``flash_attention``
+           at every shape phase 4 launches it at, beside SDPA, with its
+           launches per model, ``wkv6``'s in cycles per token, and the
+           f32 flash kernel at the parity prefill's shapes and at the
+           long prompt, beside its FMA and split-TF32 bounds),
            one-way latency and bandwidth per path and size, one-sided
            latency and bandwidth per size, the serving tier's QPS and
            latency, the serving numbers per model, and the card's name
@@ -95,7 +109,9 @@ result. Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import json
+import os
 import re
+import signal
 import subprocess
 import sys
 import time
@@ -135,7 +151,23 @@ PCIE_BPS = 32e9 * 16 * 128 / 130 / 8
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "tf32": 495e12}
 
 # the model path: published configs, serve_batch's shape, one long prompt
-MODELS = ("llama3-8b", "rwkv6-3b")
+MODELS = ("llama3-8b", "rwkv6-3b", "granite-moe-1b-a400m", "musicgen-large",
+          "llama-3.2-vision-90b", "jamba-1.5-large-398b")
+# phase 4's cuts of a published config, each listed in the model's
+# output as ``reduced``: (overrides, why)
+CUTS = {
+    "llama-3.2-vision-90b": (
+        {"n_layers": 5},
+        "depth 100 -> one pattern group (5 layers: 4 self-attention + 1 "
+        "cross-attention); the 88 B parameters do not fit one card"),
+    "jamba-1.5-large-398b": (
+        {"n_layers": 8, "n_experts": 4, "param_dtype": "bfloat16"},
+        "depth 72 -> one pattern group (8 layers: 7 mamba + 1 attention); "
+        "experts 16 -> 4 (top-2 kept, so tokens are still dropped); "
+        "parameters in bf16; one layer's 16 experts alone are 9.7 B "
+        "parameters"),
+}
+CTX_SEED = 7                     # the cross-attention context's seed
 SERVE = {"batch": 4, "prompt_len": 128, "gen": 32}
 LONG_PROMPT = 4096
 # prefill (kernel) against teacher-forced decode (no kernel) in f32: the
@@ -919,6 +951,24 @@ FLASH_CASES = [
     (2, 8, 1, 256, 128, False, "float32"),
     (1, 4, 4, 77, 32, False, "float32"),
     (1, 4, 1, 333, 64, True, "float32")]
+# (H, KV, D) of the self-attention layers phase 4 prefills, and its models
+FLASH_HEADS = {(32, 8, 128): ["llama3-8b"],
+               (16, 8, 64): ["granite-moe-1b-a400m"],
+               (32, 32, 64): ["musicgen-large"],
+               (64, 8, 128): ["llama-3.2-vision-90b", "jamba-1.5-large-398b"]}
+# ((H, KV, D), B, S, dtype) timed in the report: every launch shape of
+# phase 4 (4x128 and 1x4096 in bf16, the f32 parity prefill at 4x128),
+# and llama3-8b's f32 at the long prompt beside its bounds
+FLASH_TIMED = [(hd, b, s, dt) for hd in FLASH_HEADS
+               for b, s, dt in ((4, SERVE["prompt_len"], "bfloat16"),
+                                (1, LONG_PROMPT, "bfloat16"),
+                                (4, SERVE["prompt_len"], "float32"))]
+FLASH_TIMED.insert(3, ((32, 8, 128), 1, LONG_PROMPT, "float32"))
+# every launch shape of phase 4 with its plain version, on top of the
+# edges above
+FLASH_CASES += [case for case in ((b, hd[0], hd[1], s, hd[2], True, dt)
+                                  for hd, b, s, dt in FLASH_TIMED)
+                if case not in FLASH_CASES]
 # bf16 outputs: bound on ||got - want||_2 / ||want||_2, scaled to the
 # output where 3e-2 is not: at S = 4096 an output is ~0.02, and a 2 %
 # error in every row (a softmax scale off by 2 %) stays inside 3e-2.
@@ -1089,11 +1139,8 @@ def model_kernel_timings() -> tuple[list[dict], list[dict]]:
     from repro_torch.kernels.rwkv6 import ref as wk_ref
     g = torch.Generator(device="cuda").manual_seed(12)
     flash = []
-    for b, s, dt in ((4, SERVE["prompt_len"], "bfloat16"),
-                     (1, LONG_PROMPT, "bfloat16"),
-                     (4, SERVE["prompt_len"], "float32"),
-                     (1, LONG_PROMPT, "float32")):
-        shape = (b, 32, 8, s, 128)
+    for heads, b, s, dt in FLASH_TIMED:
+        shape = (b, *heads[:2], s, heads[2])
         plan = _flash_plan(*shape, True, dt)
         q, k, v = _flash_inputs(*shape, dt, g)
         reps = 20 if s <= 1024 else 5
@@ -1112,8 +1159,10 @@ def model_kernel_timings() -> tuple[list[dict], list[dict]]:
         else:
             (bound, by), fma = _bound_ms(flops, nbytes, dt), {}
         kind = "bf16" if dt == "bfloat16" else "f32"
+        h, kv, d = heads
         flash.append({
-            "shape": f"B={b} H=32 KV=8 S={s} D=128 {kind} causal",
+            "shape": f"B={b} H={h} KV={kv} S={s} D={d} {kind} causal",
+            "models": FLASH_HEADS[heads],
             "ms": kern, "issued_ms": kern_issued, "plain_ms": plain,
             "library_ms": lib, "bound_ms": bound, "bound_by": by, **fma,
             "TFLOPs": flops / kern / 1e9, "CTAs": plan["grid"]})
@@ -1152,22 +1201,21 @@ def _sync_s(t0: float) -> float:
     return time.perf_counter() - t0
 
 
-def _decode_profile(params, cfg, prompts, steps: int = 3) -> dict:
+def _decode_profile(params, cfg, step_batch, b: int, steps: int = 3) -> dict:
     """One decode step's wall time (unprofiled, synchronised), and its
     device time from ``torch.profiler`` (the kernels' own durations):
-    their ratio is the card's busy share during decode."""
+    their ratio is the card's busy share during decode. ``step_batch(i)``
+    is the batch of step i."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models import lm
-    b = prompts.shape[0]
     state = lm.decode_state_init(cfg, b, steps + 1, device="cuda")
 
     def run():
         for i in range(steps):
-            lm.decode_step(params, cfg, state,
-                           {"tokens": prompts[:, i:i + 1]},
+            lm.decode_step(params, cfg, state, step_batch(i),
                            torch.full((b,), i, dtype=torch.int32,
                                       device="cuda"))
         torch.cuda.synchronize()
@@ -1189,29 +1237,92 @@ def _decode_profile(params, cfg, prompts, steps: int = 3) -> dict:
                                / steps for e in top}}
 
 
+def model_config(arch: str):
+    """``arch``'s published config with phase 4's cuts (``CUTS``);
+    returns (config, the cuts as text or None)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    over, why = CUTS.get(arch, ({}, None))
+    over = dict(over)
+    if "n_experts" in over:
+        over["moe"] = dataclasses.replace(cfg.moe,
+                                          n_experts=over.pop("n_experts"))
+    return dataclasses.replace(cfg, **over), why
+
+
+def prefill_launches(cfg) -> dict:
+    """Kernel launches one prefill makes: ``flash_attention`` once per
+    self-attention layer (a cross-attention layer given its context runs
+    plain torch ops), ``wkv6`` once per rwkv6 layer."""
+    def layers(mixer):
+        return sum(b.mixer == mixer for b in cfg.pattern) * cfg.n_groups
+    return {"flash_attention": layers("attn"), "wkv6": layers("rwkv6")}
+
+
+def model_batch(params, cfg, toks, ctx=None) -> dict:
+    """What the model is fed for prompt tokens ``toks`` (B, S): a frames
+    model the embedding rows of the tokens in the compute dtype (as
+    ``serve_batch`` feeds it), any other the tokens; and ``ctx`` for a
+    cross-attention model."""
+    import torch
+    if cfg.frontend == "frames":
+        batch = {"frames": params["embed"][toks.long()].to(
+            getattr(torch, cfg.compute_dtype))}
+    else:
+        batch = {"tokens": toks}
+    if ctx is not None:
+        batch["ctx"] = ctx
+    return batch
+
+
+def fill_cross_cache(params, cfg, state, ctx) -> None:
+    """Fill each cross-attention layer's decode cache with ``ctx @ wk``
+    and ``ctx @ wv`` as (B, KV, Nctx, Dh), so that decode attends over
+    the context the prefill was given. No entry point of the port (or of
+    the JAX package) fills it: this is the smoke's, for the parity
+    check."""
+    import torch
+    cdt = getattr(torch, cfg.compute_dtype)
+    b, n, _ = ctx.shape
+    for p, blk in enumerate(cfg.pattern):
+        if blk.mixer != "cross_attn":
+            continue
+        mixer = params["blocks"][p]["mixer"]
+        for name, w in (("k", "wk"), ("v", "wv")):
+            t = ctx.to(cdt)[None] @ mixer[w].to(cdt)[:, None]  # (G,B,N,E)
+            state[p]["kv"][name].copy_(t.reshape(
+                cfg.n_groups, b, n, cfg.n_kv_heads, cfg.d_head
+            ).transpose(2, 3))
+
+
 def model_phase(arch: str) -> dict:
-    """Serve and prefill ``arch`` at full width and depth; returns what
-    the run measured and how often each kernel launched."""
+    """Serve and prefill ``arch`` at full width (and full depth unless
+    ``CUTS`` cuts it); returns what the run measured and how often each
+    kernel launched."""
     import dataclasses
 
     import numpy as np
     import torch
 
-    from repro_torch.configs import get_config
     from repro_torch.kernels.cellcopy import ops as cc
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.rwkv6 import ops as wk
     from repro_torch.launch.serve import serve_batch
     from repro_torch.models import lm
-    kern = fa if arch == "llama3-8b" else wk
-    cfg = get_config(arch)
+    kernels = {"flash_attention": fa, "wkv6": wk}
+    cfg, reduced = model_config(arch)
+    per_prefill = prefill_launches(cfg)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = lm.init(cfg, 0, device="cuda")
     init_s = _sync_s(t0)
     param_gb = sum(t.numel() * t.element_size()
                    for t in lm.tree_leaves(params)) / 1e9
-    res: dict = {"arch": arch, "init_s": init_s, "param_GB": param_gb}
+    res: dict = {"arch": arch, "reduced": reduced, "init_s": init_s,
+                 "param_GB": param_gb,
+                 "launches_per_prefill": per_prefill}
 
     # the main path: counts to 0 just before, read just after
     cc.LAUNCHES = fa.LAUNCHES = wk.LAUNCHES = 0
@@ -1224,8 +1335,8 @@ def model_phase(arch: str) -> dict:
     res["serve"] = {k: served[k] for k in
                     ("decode_tok_per_s", "prefill_s", "decode_s")}
     res["serve"]["peak_GB"] = torch.cuda.max_memory_allocated() / 1e9
-    if kern.LAUNCHES:
-        fail(f"{arch}: serve_batch's teacher-forced prefill launched the "
+    if fa.LAUNCHES or wk.LAUNCHES:
+        fail(f"{arch}: serve_batch's teacher-forced prefill launched a "
              "prefill kernel")
     rng = np.random.default_rng(0)          # serve_batch's prompts
     prompts = torch.from_numpy(rng.integers(
@@ -1233,43 +1344,66 @@ def model_phase(arch: str) -> dict:
         dtype=np.int32)).cuda()
     long_prompt = torch.from_numpy(np.random.default_rng(1).integers(
         0, cfg.vocab_size, size=(1, LONG_PROMPT), dtype=np.int32)).cuda()
+    ctx = long_ctx = None
+    if cfg.n_ctx_tokens:
+        g = torch.Generator(device="cuda").manual_seed(CTX_SEED)
+        ctx, long_ctx = (torch.randn((b, cfg.n_ctx_tokens, cfg.d_model),
+                                     generator=g, device="cuda")
+                         for b in (SERVE["batch"], 1))
 
-    def prefill(c, toks, what):
-        before = kern.LAUNCHES
+    def prefill(c, batch, what):
+        before = {k: m.LAUNCHES for k, m in kernels.items()}
         t0 = time.perf_counter()
-        logits = lm.prefill(params, c, {"tokens": toks})
+        logits = lm.prefill(params, c, batch)
         secs = _sync_s(t0)
-        n = kern.LAUNCHES - before
-        if n != cfg.n_layers:
-            fail(f"{arch} {what}: {n} kernel launches, want one per layer "
-                 f"({cfg.n_layers})")
-        if logits.shape != (toks.shape[0], cfg.vocab_size) or not bool(
+        n = {k: m.LAUNCHES - before[k] for k, m in kernels.items()}
+        if n != per_prefill:
+            fail(f"{arch} {what}: kernel launches {n}, want one per "
+                 f"self-attention or rwkv6 layer {per_prefill}")
+        b = next(iter(batch.values())).shape[0]
+        if logits.shape != (b, cfg.vocab_size) or not bool(
                 torch.isfinite(logits).all()):
             fail(f"{arch} {what}: logits {tuple(logits.shape)} not finite "
                  "or of the wrong shape")
         return logits, secs
 
-    res["decode_profile"] = _decode_profile(params, cfg, prompts)
+    step = model_batch(params, cfg, prompts)
+    res["decode_profile"] = _decode_profile(
+        params, cfg, lambda i: {k: v[:, i:i + 1] for k, v in step.items()},
+        SERVE["batch"])
     torch.cuda.reset_peak_memory_stats()
-    _, cold = prefill(cfg, prompts, "prefill 4x128")
-    _, warm = prefill(cfg, prompts, "prefill 4x128")
-    _, long_s = prefill(cfg, long_prompt, f"prefill 1x{LONG_PROMPT}")
+    short = model_batch(params, cfg, prompts, ctx)
+    _, cold = prefill(cfg, short, "prefill 4x128")
+    _, warm = prefill(cfg, short, "prefill 4x128")
+    _, long_s = prefill(cfg, model_batch(params, cfg, long_prompt, long_ctx),
+                        f"prefill 1x{LONG_PROMPT}")
     res["prefill"] = {"4x128_s": warm, "4x128_first_s": cold,
                       f"1x{LONG_PROMPT}_s": long_s,
                       "peak_GB": torch.cuda.max_memory_allocated() / 1e9}
+    del short
 
     # f32 compute, TF32 off: prefill (kernel) against teacher-forced
-    # decode (no kernel) at the last prompt position
+    # decode (no kernel) at the last prompt position; MoE at ample
+    # capacity (the prefill's groups and decode's drop different tokens
+    # by design), cross-attention over the prefill's context in the
+    # decode cache
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     c32 = dataclasses.replace(cfg, compute_dtype="float32")
-    _, f32_first = prefill(c32, prompts, "f32 prefill")
-    par, f32_warm = prefill(c32, prompts, "f32 prefill")
+    if cfg.moe is not None:
+        c32 = dataclasses.replace(c32, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=8.0))
+    full = model_batch(params, c32, prompts, ctx)
+    _, f32_first = prefill(c32, full, "f32 prefill")
+    par, f32_warm = prefill(c32, full, "f32 prefill")
     state = lm.decode_state_init(c32, SERVE["batch"], SERVE["prompt_len"],
                                  device="cuda")
+    if ctx is not None:
+        fill_cross_cache(params, c32, state, ctx)
     for i in range(SERVE["prompt_len"]):
         seq, state = lm.decode_step(
-            params, c32, state, {"tokens": prompts[:, i:i + 1]},
+            params, c32, state,
+            {k: v[:, i:i + 1] for k, v in full.items() if k != "ctx"},
             torch.full((SERVE["batch"],), i, dtype=torch.int32,
                        device="cuda"))
     diff = float((par - seq).abs().max())
@@ -1279,18 +1413,25 @@ def model_phase(arch: str) -> dict:
                                     "ratio": diff / scale,
                                     "tol": LOGIT_TOL,
                                     "prefill_4x128_s": f32_warm,
-                                    "prefill_4x128_first_s": f32_first}
+                                    "prefill_4x128_first_s": f32_first,
+                                    "peak_GB": torch.cuda.
+                                    max_memory_allocated() / 1e9}
     if not diff <= LOGIT_TOL * scale:
         fail(f"{arch}: f32 prefill and teacher-forced decode differ by "
              f"{diff:.3g} (max |logit| {scale:.3g})")
-    res["launches"] = {"cellcopy": cc.LAUNCHES, "flash_attention":
-                       fa.LAUNCHES, "wkv6": wk.LAUNCHES}
-    if kern.LAUNCHES != 5 * cfg.n_layers or cc.LAUNCHES:
-        fail(f"{arch}: launches on the model path {res['launches']}")
-    del params, state
+    res["launches"] = {"cellcopy": cc.LAUNCHES,
+                       **{k: m.LAUNCHES for k, m in kernels.items()}}
+    want = {k: 5 * n for k, n in per_prefill.items()}
+    if {k: m.LAUNCHES for k, m in kernels.items()} != want or cc.LAUNCHES:
+        fail(f"{arch}: launches on the model path {res['launches']}, "
+             f"want {want} and no cellcopy")
+    peak = max(res[k]["peak_GB"] for k in
+               ("serve", "prefill", "f32_prefill_vs_decode"))
+    if not peak < 80:
+        fail(f"{arch}: peak card memory {peak:.1f} GB, over 80 GB")
+    del params, state, full, ctx, long_ctx
     torch.cuda.empty_cache()
     return res
-
 
 
 def _ptxas_kernels(log: str) -> dict:
@@ -1317,7 +1458,6 @@ def _ptxas_kernels(log: str) -> dict:
 def _hgmma_counts(lib) -> dict | None:
     """{mangled name: HGMMA instructions} of each kernel in the library's
     SASS, or None where the toolkit has no ``cuobjdump``."""
-    import os
     import shutil
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
@@ -1514,6 +1654,52 @@ def check_main(ranks: list[dict], main_s: float) -> tuple:
     return launches, lat, per_msg_launches
 
 
+def _children() -> list[int]:
+    """This process's children, read from /proc."""
+    me, kids = str(os.getpid()), []
+    for d in filter(str.isdigit, os.listdir("/proc")):
+        try:
+            stat = Path(f"/proc/{d}/stat").read_text()
+        except OSError:                  # exited meanwhile
+            continue
+        if stat[stat.rfind(")") + 2:].split()[1] == me:
+            kids.append(int(d))
+    return kids
+
+
+def stop_children() -> None:
+    """Leave no process running: end the ranks ``run_processes`` may have
+    left, then the multiprocessing resource tracker that its shared
+    memory started (EOF on its pipe ends it; it ignores SIGTERM), and
+    wait for each, so that none outlives the script."""
+    import multiprocessing as mp
+    from multiprocessing import resource_tracker
+    for p in mp.active_children():
+        p.kill()
+        p.join(10)
+    tracker = resource_tracker._resource_tracker
+    if tracker._fd is not None:
+        os.close(tracker._fd)
+        tracker._fd = tracker._pid = None
+    deadline = time.monotonic() + 10
+    while (kids := _children()) and time.monotonic() < deadline:
+        for pid in kids:
+            _reap(pid, os.WNOHANG)
+        time.sleep(0.05)
+    for pid in _children():
+        print(f"chip_smoke: killing leftover process {pid}",
+              file=sys.stderr, flush=True)
+        os.kill(pid, signal.SIGKILL)
+        _reap(pid, 0)
+
+
+def _reap(pid: int, flags: int) -> int:
+    """waitpid that treats a child already reaped as gone."""
+    try:
+        return os.waitpid(pid, flags)[0]
+    except ChildProcessError:
+        return pid
+
 
 def main() -> None:
     import torch
@@ -1633,19 +1819,22 @@ def main() -> None:
         "bound_by": "bytes", "library_ms": head["library_ms"],
         "launches_per_1MiB_message": per_msg_launches,
         "build": kernel_build["cellcopy_kernel"], "shapes": rows}]
-    for name, src, replaces, arch, c, rows_ in (
+    for name, src, replaces, c, rows_ in (
             ("flash_attention", "flash_attention.cu",
-             "src/repro/kernels/flash_attention/kernel.py:75", "llama3-8b",
-             fcheck, flash_rows),
+             "src/repro/kernels/flash_attention/kernel.py:75", fcheck,
+             flash_rows),
             ("wkv6", "wkv6.cu", "src/repro/kernels/rwkv6/kernel.py:78",
-             "rwkv6-3b", wcheck, wkv_rows)):
-        head = next(r for r in rows_               # bf16, long prompt
+             wcheck, wkv_rows)):
+        head = next(r for r in rows_    # bf16, long prompt, first model
                     if f" S={LONG_PROMPT} " in r["shape"]
                     and " bf16 " in r["shape"])
+        by_model = {a: m["launches"][name] for a, m in models.items()
+                    if m["launches"][name]}
         entries.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{src}", "replaces": replaces,
-            "launches": models[arch]["launches"][name],
+            "launches": sum(by_model.values()),
+            "launches_by_model": by_model,
             "mismatches": c.mismatches, "max_abs_err": c.max_abs_err,
             "max_rel_err": c.max_rel_err,
             **({"max_l2_err": c.max_l2_err, "by_dtype": c.by_kind}
@@ -1660,8 +1849,8 @@ def main() -> None:
     say(json.dumps({"one_sided_latency_bandwidth": one_sided}))
     say(json.dumps({"serve_tier": serve_tier}))
     say(json.dumps({"serving": {a: {k: m[k] for k in (
-        "serve", "decode_profile", "prefill", "f32_prefill_vs_decode",
-        "init_s", "param_GB")}
+        "reduced", "serve", "decode_profile", "prefill",
+        "f32_prefill_vs_decode", "init_s", "param_GB")}
         for a, m in models.items()}}))
     say(f"[done] {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": entries}))
@@ -1672,4 +1861,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        stop_children()

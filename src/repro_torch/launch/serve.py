@@ -37,7 +37,9 @@ def serve_batch(cfg, *, batch: int, prompt_len: int, gen: int,
     """Prefill a batch of prompts, then decode ``gen`` tokens each.
 
     The prompts are the JAX package's (numpy ``default_rng(seed)``), and
-    the prefill teacher-forces them through decode steps as it does.
+    the prefill teacher-forces them through decode steps as it does. A
+    cross-attention model attends over its context cache as
+    ``decode_state_init`` leaves it (zeros), as the JAX package's does.
     ``params``: weights to serve (on ``device``); by default
     ``lm.init(cfg, seed)``. ``greedy=False`` samples from the softmax
     with a ``torch.Generator`` seeded with ``seed``, which gives other
@@ -55,12 +57,21 @@ def serve_batch(cfg, *, batch: int, prompt_len: int, gen: int,
     sampler = torch.Generator(device=device).manual_seed(seed)
     state = lm.decode_state_init(cfg, batch, cache_len, device=device)
 
+    def step_batch(tok):
+        """A frames model is fed each token's embedding row, cast to the
+        compute dtype, as its frame (the JAX package's serve step)."""
+        if cfg.frontend == "frames":
+            rows = params["embed"][tok[:, 0].long()]
+            return {"frames": rows.to(getattr(torch, cfg.compute_dtype))
+                    [:, None, :]}
+        return {"tokens": tok}
+
     t0 = time.perf_counter()
     logits = None
     for i in range(prompt_len):
         pos = torch.full((batch,), i, dtype=torch.int32, device=device)
         logits, state = lm.decode_step(params, cfg, state,
-                                       {"tokens": prompts[:, i:i + 1]}, pos)
+                                       step_batch(prompts[:, i:i + 1]), pos)
     _sync(device)
     t_prefill = time.perf_counter() - t0
 
@@ -77,7 +88,7 @@ def serve_batch(cfg, *, batch: int, prompt_len: int, gen: int,
         pos = torch.full((batch,), prompt_len + j, dtype=torch.int32,
                          device=device)
         logits, state = lm.decode_step(params, cfg, state,
-                                       {"tokens": nxt[:, None]}, pos)
+                                       step_batch(nxt[:, None]), pos)
     _sync(device)
     t_decode = time.perf_counter() - t0
 

@@ -1,6 +1,7 @@
 """Model building blocks in PyTorch: norms, rotary embeddings, attention
-(GQA, causal, chunked, decode with a cache), SwiGLU FFN, RWKV6 (Finch)
-time and channel mix.
+(GQA, causal, chunked, decode with a cache), cross-attention, SwiGLU FFN,
+capacity-based MoE, Mamba selective scan, RWKV6 (Finch) time and channel
+mix.
 
 All blocks are plain functions ``apply(params, x, ...) -> y`` over
 parameter dicts laid out as the JAX package's trees. On a CUDA tensor the
@@ -8,9 +9,12 @@ full-sequence causal self-attention and the WKV6 prefill run the port's
 hand-written kernels; on the CPU they keep the JAX package's jnp
 structure (``_plain_attention`` / ``_chunked_attention``, ``_wkv6_scan``),
 so the CPU tests compare like with like. Any other device raises.
+Cross-attention (queries and keys of different lengths), the MoE
+dispatch and the Mamba scan are plain torch ops on both devices, as the
+JAX package computes them outside any Pallas kernel.
 
-Left out of this slice (``ROADMAP.md`` Queue 1): mamba, MoE, cross
-attention, the int8 KV cache and the distribution hooks (``dist``).
+The distribution hooks (``dist``, among them the expert-parallel
+``moe_apply_ep``) are not ported yet (``ROADMAP.md`` Queue 1).
 """
 from __future__ import annotations
 
@@ -20,7 +24,7 @@ from typing import Any, Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.configs.base import ModelConfig, RWKVConfig
+from repro_torch.configs.base import MambaConfig, ModelConfig, RWKVConfig
 from repro_torch.kernels import route
 from repro_torch.kernels.flash_attention.ops import flash_attention_bshd
 from repro_torch.kernels.rwkv6.ops import wkv6_bshn
@@ -37,8 +41,8 @@ def unported(what: str, item: str) -> NotImplementedError:
 
 def _no_dist(dist) -> None:
     if dist is not None:
-        raise unported("dist (sharding, vocab-parallel, flashdecode)",
-                       "Queue 1 item 5, distribution layer")
+        raise unported("dist (sharding, vocab-parallel, flashdecode, "
+                       "expert-parallel MoE)", "Queue 1, distribution layer")
 
 
 # --------------------------------------------------------------------------
@@ -201,31 +205,49 @@ def check_kv_room(pos, cache_len: int) -> None:
             f"(decode_state_init's cache_len)")
 
 
-def attn_apply(params: Params, cfg: ModelConfig, x, positions, *,
-               ctx=None, cache=None, cache_len=None, dist=None):
-    """Causal self-attention.
-
-    x: (B, S, D). cache: optional dict {k: (B, KV, Smax, Dh), v: ...} for
-    decode; when given, S must be 1 and ``cache_len`` (B,) gives the
-    valid prefix length, which must be < Smax: ``lm.decode_step`` checks
-    that once per step for a CPU ``pos`` (``check_kv_room``) and raises
-    ``ValueError`` where the JAX package drops or clamps the update. The
-    cache is updated in place (the JAX package returns a new one): the
-    one-hot update keeps its add semantics, the ``dus`` update is an
-    indexed write. Returns (out, cache).
-    """
-    if ctx is not None:
-        raise unported("cross-attention (cross_attn)",
-                       "Queue 1, cross-attention/VLM")
-    _no_dist(dist)
-    D, H, KV, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+def attn_decode_readonly(params: Params, cfg: ModelConfig, x, kv_cache):
+    """Cross-attention at decode time: q from x (B, 1, D), k/v from the
+    static context cache (B, KV, Nctx, Dh). No cache update, no causal
+    mask, no rope."""
+    H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     b, s, _ = x.shape
     cdt = _dtype(cfg)
     q = (x @ params["wq"].to(cdt)).reshape(b, s, H, Dh)
-    k = (x @ params["wk"].to(cdt)).reshape(b, s, KV, Dh)
-    v = (x @ params["wv"].to(cdt)).reshape(b, s, KV, Dh)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    k = _repeat_kv(kv_cache["k"].transpose(1, 2), H // KV)
+    v = _repeat_kv(kv_cache["v"].transpose(1, 2), H // KV)
+    out = _plain_attention(q, k, v, causal=False)
+    return out.reshape(b, s, H * Dh) @ params["wo"].to(cdt)
+
+
+def attn_apply(params: Params, cfg: ModelConfig, x, positions, *,
+               ctx=None, cache=None, cache_len=None, dist=None):
+    """Self- or cross-attention.
+
+    x: (B, S, D). ctx: (B, Nctx, D) for cross-attention: K and V come
+    from ``ctx``, with no rope and no causal mask, through
+    ``_plain_attention`` on both devices (the kernel takes equal query
+    and key lengths only). cache: optional dict {k: (B, KV, Smax, Dh),
+    v: ...} for self-attention decode; when given, S must be 1 and
+    ``cache_len`` (B,) gives the valid prefix length, which must be <
+    Smax: ``lm.decode_step`` checks that once per step for a CPU ``pos``
+    (``check_kv_room``) and raises ``ValueError`` where the JAX package
+    drops or clamps the update. The cache is updated in place (the JAX
+    package returns a new one): the one-hot update keeps its add
+    semantics, the ``dus`` update is an indexed write. Returns (out,
+    cache).
+    """
+    _no_dist(dist)
+    H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    b, s, _ = x.shape
+    cdt = _dtype(cfg)
+    is_cross = ctx is not None
+    kv_src = ctx if is_cross else x
+    q = (x @ params["wq"].to(cdt)).reshape(b, s, H, Dh)
+    k = (kv_src @ params["wk"].to(cdt)).reshape(b, -1, KV, Dh)
+    v = (kv_src @ params["wv"].to(cdt)).reshape(b, -1, KV, Dh)
+    if not is_cross:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
 
     if cache is not None:
         if s != 1:
@@ -245,6 +267,9 @@ def attn_apply(params: Params, cfg: ModelConfig, x, positions, *,
         v_full = _repeat_kv(v_cache.transpose(1, 2), H // KV)
         out = _plain_attention(q, k_full, v_full, causal=False,
                                kv_len=cache_len + 1)
+    elif is_cross:
+        out = _plain_attention(q, _repeat_kv(k, H // KV),
+                               _repeat_kv(v, H // KV), causal=False)
     elif route("attention", q, k, v) == "cuda":
         # the kernel maps query head h to kv head h // (H // KV) itself
         out = flash_attention_bshd(q, k, v, causal=True)
@@ -316,6 +341,245 @@ def cmix_apply(params: Params, cfg: ModelConfig, x, x_prev=None):
     r = torch.sigmoid(xr @ params["cm_r"].to(cdt))
     k = torch.square(torch.relu(xk @ params["cm_k"].to(cdt)))
     return r * (k @ params["cm_v"].to(cdt)), x[:, -1, :]
+
+
+# --------------------------------------------------------------------------
+# MoE (GShard-style capacity dispatch)
+# --------------------------------------------------------------------------
+
+def moe_init(gen, cfg: ModelConfig, *, device="cpu", lead=()) -> Params:
+    D, Fd, E = cfg.d_model, cfg.d_ff, cfg.moe.n_experts
+    kw = dict(dtype=getattr(torch, cfg.param_dtype), device=device,
+              lead=lead)
+    return {
+        "router": dense_init(gen, (D, E), scale=0.02, **kw),
+        "w_gate": dense_init(gen, (E, D, Fd), scale=1.0 / math.sqrt(D),
+                             **kw),
+        "w_up": dense_init(gen, (E, D, Fd), scale=1.0 / math.sqrt(D), **kw),
+        "w_down": dense_init(gen, (E, Fd, D), scale=1.0 / math.sqrt(Fd),
+                             **kw),
+    }
+
+
+def moe_capacity(cfg: ModelConfig, group_tokens: int) -> int:
+    moe = cfg.moe
+    c = math.ceil(group_tokens * moe.top_k * moe.capacity_factor
+                  / moe.n_experts)
+    return max(c, 1)
+
+
+def _top_k(probs, k: int):
+    """``lax.top_k``'s order: largest first, the lower index first on
+    ties (a stable descending sort; ``torch.topk`` leaves ties in no
+    stated order)."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def moe_apply(params: Params, cfg: ModelConfig, x):
+    """x: (B, S, D) -> (y, aux_loss), the JAX package's GShard dispatch.
+
+    Groups are rows of the batch when S > 1, or groups of ``min(B, 16)``
+    adjacent rows for decode shapes (S == 1). A (token, k)'s place in its
+    expert's queue is the cumsum of the one-hot assignment; places at or
+    past the capacity C are dropped. The (G, E, C) dispatch table holds
+    token ids, ``gtok`` (a zero row of ``xpad``) where a slot is empty.
+
+    The JAX package writes the table with one scatter in which a dropped
+    (token, k) writes the sentinel into slot (expert 0, C - 1); where a
+    kept token holds that slot, XLA's CPU scatter keeps the last write in
+    flat (token, k) order, so a later dropped entry takes the slot and
+    the kept token loses its expert-0 output (``ROADMAP.md`` Queue 3).
+    The port reproduces that rule on both devices: each slot takes the
+    value of the last (token, k) in flat order that writes it (an
+    ``amax`` of the flat index per slot), since a scatter with repeated
+    indices has no stated order on the card.
+
+    The combine, in f32, gathers each kept (token, k)'s slot where the
+    table still names that token: the same sum of weighted expert outputs
+    as the JAX package's scatter-add over slots, without atomics.
+    """
+    moe = cfg.moe
+    E, K = moe.n_experts, moe.top_k
+    cdt = _dtype(cfg)
+    b, s, d = x.shape
+    if s > 1:
+        groups, gtok = b, s
+        xg = x
+    else:
+        gsz = min(b, 16)
+        groups, gtok = b // gsz, gsz
+        xg = x.reshape(groups, gtok, d)
+    C = moe_capacity(cfg, gtok)
+    dev = x.device
+
+    logits = (xg @ params["router"].to(cdt)).float()            # (G,T,E)
+    probs = torch.softmax(logits, dim=-1)
+    top_p, top_e = _top_k(probs, K)                              # (G,T,K)
+    top_p = top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9)
+
+    # position of each (token, k) inside its expert queue
+    onehot = F.one_hot(top_e, E).float()                         # (G,T,K,E)
+    flat = onehot.reshape(groups, gtok * K, E)
+    pos = torch.cumsum(flat, dim=1) - flat
+    pos = (pos * flat).sum(-1).reshape(groups, gtok, K)
+    keep = pos < C
+    # the slot each (token, k) writes, flat over (E, C); dropped ones all
+    # write the sentinel into (0, C - 1)
+    slot = torch.where(keep, top_e * C + pos.long(), C - 1).reshape(
+        groups, gtok * K)
+    tok_ids = torch.arange(gtok, device=dev)[None, :, None].expand(
+        groups, gtok, K)
+    vals = torch.where(keep, tok_ids, gtok).reshape(groups, gtok * K)
+    order = torch.arange(gtok * K, device=dev).expand(groups, gtok * K)
+    last = torch.full((groups, E * C), -1, dtype=torch.long, device=dev)
+    last.scatter_reduce_(1, slot, order, "amax")
+    dispatch = torch.where(last >= 0, vals.gather(1, last.clamp_min(0)),
+                           gtok)                                 # (G, E*C)
+
+    # gather expert inputs (the sentinel reads the zero row)
+    xpad = torch.cat([xg, xg.new_zeros(groups, 1, d)], dim=1)
+    rows = torch.arange(groups, device=dev)[:, None]
+    expert_in = xpad[rows, dispatch].reshape(groups, E, C, d)
+    h_g = torch.einsum("gecd,edf->gecf", expert_in,
+                       params["w_gate"].to(cdt))
+    h_u = torch.einsum("gecd,edf->gecf", expert_in, params["w_up"].to(cdt))
+    expert_out = torch.einsum("gecf,efd->gecd", F.silu(h_g) * h_u,
+                              params["w_down"].to(cdt))
+
+    # combine: each kept (token, k) whose slot still names it
+    mine = keep.reshape(groups, gtok * K) & (dispatch.gather(1, slot)
+                                             == vals)
+    w = torch.where(mine, top_p.reshape(groups, gtok * K), 0.0)
+    picked = expert_out.reshape(groups, E * C, d)[rows, slot].float()
+    y = (picked * w[..., None]).reshape(groups, gtok, K, d).sum(2).to(cdt)
+
+    # load-balancing auxiliary loss (Switch-style)
+    me = probs.mean(dim=(0, 1))                                  # (E,)
+    ce = onehot.sum(dim=2).mean(dim=(0, 1))      # fraction routed per e
+    aux = E * torch.sum(me * ce / K)
+    if s == 1:
+        y = y.reshape(b, s, d)
+    return y, aux
+
+
+# --------------------------------------------------------------------------
+# Mamba (selective state space)
+# --------------------------------------------------------------------------
+
+def mamba_init(gen, cfg: ModelConfig, *, device="cpu", lead=()) -> Params:
+    mc = cfg.mamba or MambaConfig()
+    D = cfg.d_model
+    d_in = mc.expand * D
+    dt_rank = mc.dt_rank or -(-D // 16)
+    dt = getattr(torch, cfg.param_dtype)
+    kw = dict(dtype=dt, device=device, lead=lead)
+    a_log = torch.log(torch.arange(1, mc.d_state + 1, dtype=torch.float32,
+                                   device=device))
+    return {
+        "in_proj": dense_init(gen, (D, 2 * d_in), **kw),
+        "conv_w": dense_init(gen, (mc.d_conv, d_in), scale=0.5, **kw),
+        "conv_b": torch.zeros((*lead, d_in), dtype=dt, device=device),
+        "x_proj": dense_init(gen, (d_in, dt_rank + 2 * mc.d_state), **kw),
+        "dt_proj": dense_init(gen, (dt_rank, d_in), **kw),
+        "dt_bias": torch.full((*lead, d_in), -4.6, dtype=dt,
+                              device=device),     # softplus^-1(0.01)
+        "A_log": a_log.repeat(*lead, d_in, 1).to(dt),
+        "D": torch.ones((*lead, d_in), dtype=dt, device=device),
+        "out_proj": dense_init(gen, (d_in, D), **kw),
+    }
+
+
+def _chunk_scan(a, b):
+    """Inclusive scan over dim 1 of the pairs (a, b) under the combine
+    (al * ar, bl * ar + br), the JAX package's associative scan, by
+    log-step doubling (Hillis-Steele): 6 steps for a 64-token chunk."""
+    n, step = a.shape[1], 1
+    while step < n:
+        b = torch.cat([b[:, :step], b[:, :-step] * a[:, step:]
+                       + b[:, step:]], dim=1)
+        a = torch.cat([a[:, :step], a[:, :-step] * a[:, step:]], dim=1)
+        step *= 2
+    return a, b
+
+
+def _selective_scan(u, dt, B, Cm, A, chunk: int = 64):
+    """u: (b, S, d_in); dt: (b, S, d_in); B, Cm: (b, S, N); A: (d_in, N).
+
+    h_t = exp(A*dt_t) h_{t-1} + dt_t * B_t * u_t;  y_t = <Cm_t, h_t>.
+    Chunked as the JAX package computes it: S padded to a multiple of
+    ``chunk``, h carried from chunk to chunk, a parallel scan inside a
+    chunk. One chunk's (b, chunk, d_in, N) terms are held at a time.
+    """
+    b, S, d_in = u.shape
+    pad = (-S) % chunk
+    if pad:
+        u, dt, B, Cm = (F.pad(a, (0, 0, 0, pad)) for a in (u, dt, B, Cm))
+    h = torch.zeros((b, d_in, A.shape[1]), dtype=torch.float32,
+                    device=u.device)
+    ys = []
+    for c0 in range(0, S + pad, chunk):
+        uc, dtc, Bc, Cc = (a[:, c0:c0 + chunk] for a in (u, dt, B, Cm))
+        dA = torch.exp(dtc[..., None] * A.float())               # (b,c,d,N)
+        dBu = (dtc * uc)[..., None] * Bc[..., None, :]           # (b,c,d,N)
+        aa, bb = _chunk_scan(dA, dBu)
+        h_seq = aa * h[:, None] + bb
+        ys.append(torch.einsum("bcdn,bcn->bcd", h_seq, Cc.float()))
+        h = h_seq[:, -1]
+    return torch.cat(ys, dim=1)[:, :S]
+
+
+def mamba_apply(params: Params, cfg: ModelConfig, x, *, state=None):
+    """x: (B, S, D). state: {conv: (B, d_conv-1, d_in), h: (B, d_in, N)}
+    for decode (S == 1), updated in place (the JAX package returns a new
+    one). Returns (y, state or None)."""
+    mc = cfg.mamba or MambaConfig()
+    cdt = _dtype(cfg)
+    b, s, _ = x.shape
+    xz = x @ params["in_proj"].to(cdt)
+    xi, z = xz.chunk(2, dim=-1)                        # (B,S,d_in) each
+
+    conv_w = params["conv_w"].to(cdt)                  # (d_conv, d_in)
+    if state is None:
+        xpad = F.pad(xi, (0, 0, mc.d_conv - 1, 0))
+        conv = sum(xpad[:, i:i + s] * conv_w[i] for i in range(mc.d_conv))
+    else:
+        hist = torch.cat([state["conv"], xi], dim=1)   # (B, d_conv, d_in)
+        conv = torch.einsum("bcd,cd->bd", hist, conv_w)[:, None]
+        state["conv"].copy_(hist[:, 1:])
+    conv = F.silu(conv + params["conv_b"].to(cdt))
+
+    proj = conv @ params["x_proj"].to(cdt)
+    dt_rank = params["dt_proj"].shape[0]
+    dt_x, Bm, Cm = proj.split([dt_rank, mc.d_state, mc.d_state], dim=-1)
+    dt = F.softplus((dt_x @ params["dt_proj"].to(cdt)).float()
+                    + params["dt_bias"].float())
+    A = -torch.exp(params["A_log"].float())
+
+    if state is None:
+        y = _selective_scan(conv.float(), dt, Bm.float(), Cm.float(), A)
+    else:
+        h = state["h"]                                 # (B, d_in, N) f32
+        dA = torch.exp(dt[:, 0, :, None] * A[None])
+        dBu = (dt[:, 0] * conv[:, 0].float())[..., None] \
+            * Bm[:, 0, None, :].float()
+        h.mul_(dA).add_(dBu)
+        y = torch.einsum("bdn,bn->bd", h, Cm[:, 0].float())[:, None]
+    y = y + conv.float() * params["D"].float()
+    y = y.to(cdt) * F.silu(z)
+    return y @ params["out_proj"].to(cdt), state
+
+
+def mamba_state_init(cfg: ModelConfig, batch: int, *, device="cpu",
+                     lead=()):
+    mc = cfg.mamba or MambaConfig()
+    d_in = mc.expand * cfg.d_model
+    return {
+        "conv": torch.zeros((*lead, batch, mc.d_conv - 1, d_in),
+                            dtype=_dtype(cfg), device=device),
+        "h": torch.zeros((*lead, batch, d_in, mc.d_state),
+                         dtype=torch.float32, device=device),
+    }
 
 
 # --------------------------------------------------------------------------

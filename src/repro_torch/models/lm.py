@@ -7,9 +7,9 @@ with one dict per pattern position, each leaf with a leading
 it is. The JAX package's ``lax.scan`` over groups is a Python loop here.
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
-Left out of this slice (``ROADMAP.md`` Queue 1): mamba and MoE blocks,
-cross attention and the frames frontend, the int8 KV cache, ``dist``,
-``loss_fn`` and training.
+Every config of ``configs.ARCHS`` initialises, runs ``forward``,
+``prefill`` and ``decode_step`` and serves. Not ported yet (``ROADMAP.md``
+Queue 1): ``dist``, ``loss_fn`` and training.
 """
 from __future__ import annotations
 
@@ -34,25 +34,6 @@ def require_device(device) -> torch.device:
             "no CUDA device: the model runs on the card by default; pass "
             "device='cpu' to run it on the CPU")
     return device
-
-
-def _check_supported(cfg: ModelConfig) -> None:
-    for blk in cfg.pattern:
-        if blk.mixer == "mamba":
-            raise unported("the mamba mixer", "Queue 1, mamba")
-        if blk.mixer == "cross_attn":
-            raise unported("cross-attention (cross_attn)",
-                           "Queue 1, cross-attention/VLM")
-        if blk.ffn == "moe":
-            raise unported("the MoE FFN", "Queue 1, moe")
-        if blk.mixer not in ("attn", "rwkv6"):
-            raise ValueError(blk.mixer)
-        if blk.ffn not in ("dense", "cmix", "none"):
-            raise ValueError(blk.ffn)
-    if cfg.frontend == "frames":
-        raise unported('frontend="frames"', "Queue 1, frames frontend")
-    if cfg.kv_cache_dtype == "int8":
-        raise unported("the int8 KV cache", "Queue 1, int8 KV cache")
 
 
 def _tree_map(fn, tree):
@@ -86,17 +67,18 @@ def _block_init(gen, cfg: ModelConfig, blk: BlockSpec, device) -> Params:
     kw = dict(device=device, lead=lead)
     p: Params = {"norm1": torch.ones((*lead, cfg.d_model), dtype=dt,
                                      device=device)}
-    if blk.mixer == "attn":
-        p["mixer"] = B.attn_init(gen, cfg, **kw)
-    else:
-        p["mixer"] = B.rwkv6_init(gen, cfg, **kw)
+    mixers = {"attn": B.attn_init, "cross_attn": B.attn_init,
+              "mamba": B.mamba_init, "rwkv6": B.rwkv6_init}
+    ffns = {"dense": B.ffn_init, "moe": B.moe_init, "cmix": B.cmix_init}
+    if blk.mixer not in mixers:
+        raise ValueError(blk.mixer)
+    p["mixer"] = mixers[blk.mixer](gen, cfg, **kw)
     if blk.ffn != "none":
+        if blk.ffn not in ffns:
+            raise ValueError(blk.ffn)
         p["norm2"] = torch.ones((*lead, cfg.d_model), dtype=dt,
                                 device=device)
-        if blk.ffn == "dense":
-            p["ffn"] = B.ffn_init(gen, cfg, **kw)
-        else:
-            p["ffn"] = B.cmix_init(gen, cfg, **kw)
+        p["ffn"] = ffns[blk.ffn](gen, cfg, **kw)
     return p
 
 
@@ -105,7 +87,6 @@ def init(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> Params:
     ``cfg.param_dtype``, made on ``device``. The numbers differ from
     the JAX package's ``lm.init``; tests carry those across with
     ``params_from_numpy``."""
-    _check_supported(cfg)
     device = require_device(device)
     # a meta device (shapes only, as params_from_numpy uses) draws nothing
     gen = torch.Generator(device="cuda" if device.type == "cuda" else "cpu")
@@ -150,23 +131,42 @@ def params_from_numpy(cfg: ModelConfig, tree, device="cuda") -> Params:
 def decode_state_init(cfg: ModelConfig, batch: int, cache_len: int, *,
                       device="cuda"):
     """Stacked-over-groups decode state, one entry per pattern position.
-    The KV cache is held in the type its update promotes to (bf16 under
-    bf16 compute, f32 under f32 compute), the type the JAX package's
-    cache takes after its first decode step, so it can be updated in
-    place."""
-    _check_supported(cfg)
+
+    A float KV cache is held in the type its update promotes to (bf16
+    under bf16 compute, f32 under f32 compute), the type the JAX
+    package's cache takes after its first decode step, so it can be
+    updated in place. ``kv_cache_dtype="int8"`` gives the JAX package's
+    tree as it is: int8 ``k``/``v`` and f32 ``k_scale``/``v_scale``,
+    which ``decode_step`` treats as the JAX package does (see there).
+    A cross-attention block holds its context's K/V (compute dtype,
+    ``n_ctx_tokens`` long), zeros until the caller fills them: no entry
+    point of either package fills them."""
     device = require_device(device)
     cdt = B._dtype(cfg)
-    kv_dt = torch.promote_types(getattr(torch, cfg.kv_cache_dtype), cdt)
+    int8 = cfg.kv_cache_dtype == "int8"
+    kv_dt = torch.int8 if int8 else torch.promote_types(
+        getattr(torch, cfg.kv_cache_dtype), cdt)
     lead = (cfg.n_groups,)
+    KV, Dh = cfg.n_kv_heads, cfg.d_head
     state = []
     for blk in cfg.pattern:
         st: Params = {}
         if blk.mixer == "attn":
-            shape = (*lead, batch, cfg.n_kv_heads, cache_len, cfg.d_head)
+            shape = (*lead, batch, KV, cache_len, Dh)
             st["kv"] = {"k": torch.zeros(shape, dtype=kv_dt, device=device),
                         "v": torch.zeros(shape, dtype=kv_dt, device=device)}
-        else:
+            if int8:
+                for name in ("k_scale", "v_scale"):
+                    st["kv"][name] = torch.zeros(
+                        shape[:-1], dtype=torch.float32, device=device)
+        elif blk.mixer == "cross_attn":
+            shape = (*lead, batch, KV, cfg.n_ctx_tokens, Dh)
+            st["kv"] = {"k": torch.zeros(shape, dtype=cdt, device=device),
+                        "v": torch.zeros(shape, dtype=cdt, device=device)}
+        elif blk.mixer == "mamba":
+            st["ssm"] = B.mamba_state_init(cfg, batch, device=device,
+                                           lead=lead)
+        elif blk.mixer == "rwkv6":
             st["ssm"] = B.rwkv6_state_init(cfg, batch, device=device,
                                            lead=lead)
         if blk.ffn == "cmix":
@@ -176,42 +176,85 @@ def decode_state_init(cfg: ModelConfig, batch: int, cache_len: int, *,
     return tuple(state)
 
 
+def _int8_kv_as_the_reference(cfg: ModelConfig, state) -> None:
+    """The JAX package's decode step over an int8 KV cache, in place.
+
+    It quantizes nothing: under ``kv_update="onehot"`` its update adds
+    compute-dtype values to the int8 cache, which promotes the cache to
+    the compute dtype, and the state it returns holds ``k`` and ``v``
+    only (the scales are gone); under ``"dus"`` its scatter refuses the
+    mixed types with a ``TypeError``. This mirrors that behaviour
+    (``ROADMAP.md`` Queue 3); it is not a design of an int8 cache."""
+    cdt = B._dtype(cfg)
+    for blk, st in zip(cfg.pattern, state):
+        if blk.mixer != "attn" or st["kv"]["k"].dtype.is_floating_point:
+            continue
+        kv = st["kv"]
+        if cfg.kv_update == "dus":
+            raise TypeError(
+                f"decode_step: a {kv['k'].dtype} KV cache takes no "
+                f"{cdt} update under kv_update='dus' (the JAX package's "
+                f"lax.scatter requires arguments to have the same dtypes)")
+        st["kv"] = {"k": kv["k"].to(cdt), "v": kv["v"].to(cdt)}
+
+
 # --------------------------------------------------------------------------
 # block application
 # --------------------------------------------------------------------------
 
 def _apply_block(bp: Params, cfg: ModelConfig, blk: BlockSpec, x, positions,
-                 *, state=None, pos=None, dist=None):
-    """Returns x after the block. With ``state`` (decode) the block's
-    state is updated in place."""
+                 *, ctx=None, state=None, pos=None, dist=None):
+    """Returns (x after the block, its MoE auxiliary loss: an f32
+    scalar, or None for a block without MoE, whose loss is 0). With
+    ``state`` (decode) the block's state is updated in place; a
+    cross-attention block then reads its context cache and leaves it as
+    it is. Without ``ctx`` a cross-attention block attends over ``x``,
+    causally and with rope, as the JAX package's does."""
     h = B.rmsnorm(x, bp["norm1"], cfg.norm_eps)
-    if blk.mixer == "attn":
-        mix, _ = B.attn_apply(bp["mixer"], cfg, h, positions,
-                              cache=None if state is None else state["kv"],
-                              cache_len=pos, dist=dist)
-    else:
+    if blk.mixer in ("attn", "cross_attn"):
+        is_cross = blk.mixer == "cross_attn"
+        if state is not None and is_cross:
+            mix = B.attn_decode_readonly(bp["mixer"], cfg, h, state["kv"])
+        else:
+            mix, _ = B.attn_apply(
+                bp["mixer"], cfg, h, positions,
+                ctx=ctx if is_cross else None,
+                cache=None if state is None else state["kv"],
+                cache_len=pos, dist=dist)
+    elif blk.mixer in ("mamba", "rwkv6"):
         B._no_dist(dist)
-        mix, _ = B.rwkv6_apply(bp["mixer"], cfg, h,
-                               state=None if state is None else state["ssm"])
+        apply = B.mamba_apply if blk.mixer == "mamba" else B.rwkv6_apply
+        mix, _ = apply(bp["mixer"], cfg, h,
+                       state=None if state is None else state["ssm"])
+    else:
+        raise ValueError(blk.mixer)
 
-    if blk.parallel and blk.ffn != "none":
+    if blk.ffn == "none":
+        return x + mix, None
+    if blk.parallel:
         # Cohere-style: attn and ffn both read the same normed input
-        return x + mix + _apply_ffn(bp, cfg, blk, h, state)
+        f, aux = _apply_ffn(bp, cfg, blk, h, state, dist)
+        return x + mix + f, aux
     x = x + mix
-    if blk.ffn != "none":
-        h2 = B.rmsnorm(x, bp["norm2"], cfg.norm_eps)
-        x = x + _apply_ffn(bp, cfg, blk, h2, state)
-    return x
+    h2 = B.rmsnorm(x, bp["norm2"], cfg.norm_eps)
+    f, aux = _apply_ffn(bp, cfg, blk, h2, state, dist)
+    return x + f, aux
 
 
-def _apply_ffn(bp, cfg, blk, h, state):
+def _apply_ffn(bp, cfg, blk, h, state, dist):
+    """Returns (y, MoE auxiliary loss, or None for the other FFNs)."""
     if blk.ffn == "dense":
-        return B.ffn_apply(bp["ffn"], cfg, h)
+        return B.ffn_apply(bp["ffn"], cfg, h), None
+    if blk.ffn == "moe":
+        B._no_dist(dist)
+        return B.moe_apply(bp["ffn"], cfg, h)
+    if blk.ffn != "cmix":
+        raise ValueError(blk.ffn)
     xp = None if state is None else state["cm_x_prev"]
     f, last = B.cmix_apply(bp["ffn"], cfg, h, x_prev=xp)
     if state is not None:
         xp.copy_(last)
-    return f
+    return f, None
 
 
 def _group(tree, g: int):
@@ -224,32 +267,41 @@ def _group(tree, g: int):
 # --------------------------------------------------------------------------
 
 def _embed_tokens(params, cfg: ModelConfig, batch, dist=None):
-    """Gather the rows, then cast them: the same values as casting the
-    whole table first, as the JAX package writes it, without a pass over
-    the table on every step."""
+    """``batch["frames"]`` cast to the compute dtype where the frontend
+    is ``"frames"`` and the batch holds them; else the embedding rows of
+    ``batch["tokens"]`` (a frames model given tokens looks them up too, as
+    the JAX package's does). The rows are gathered, then cast: the same
+    values as casting the whole table first, as the JAX package writes
+    it, without a pass over the table on every step."""
     B._no_dist(dist)
-    if cfg.frontend == "frames":
-        raise unported('frontend="frames"', "Queue 1, frames frontend")
-    tokens = torch.as_tensor(batch["tokens"], device=params["embed"].device)
+    dev = params["embed"].device
+    if cfg.frontend == "frames" and "frames" in batch:
+        return torch.as_tensor(batch["frames"], device=dev).to(B._dtype(cfg))
+    tokens = torch.as_tensor(batch["tokens"], device=dev)
     return params["embed"][tokens.long()].to(B._dtype(cfg))
 
 
 def forward(params: Params, cfg: ModelConfig, batch, *, dist=None):
-    """Causal full-sequence forward. batch: {"tokens": (B, S)}. Returns
-    x_final (B, S, D); the JAX package also returns the MoE auxiliary
-    loss, which no block of this slice produces."""
-    _check_supported(cfg)
-    if batch.get("ctx") is not None:
-        raise unported("cross-attention context (ctx)",
-                       "Queue 1, cross-attention/VLM")
+    """Causal full-sequence forward. batch: {"tokens": (B, S)} or
+    {"frames": (B, S, D)}, and {"ctx": (B, Nctx, D)} for the
+    cross-attention blocks. Returns (x_final (B, S, D), aux), aux the
+    sum of the MoE blocks' auxiliary losses (f32 scalar, 0 without
+    MoE)."""
     x = _embed_tokens(params, cfg, batch, dist)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
+    ctx = batch.get("ctx")
+    if ctx is not None:
+        ctx = torch.as_tensor(ctx, device=x.device).to(x.dtype)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for g in range(cfg.n_groups):
         gp = _group(params["blocks"], g)
         for p, blk in enumerate(cfg.pattern):
-            x = _apply_block(gp[p], cfg, blk, x, positions, dist=dist)
-    return B.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+            x, a = _apply_block(gp[p], cfg, blk, x, positions, ctx=ctx,
+                                dist=dist)
+            if a is not None:
+                aux = aux + a
+    return B.rmsnorm(x, params["final_norm"], cfg.norm_eps), aux
 
 
 def lm_head(params: Params, cfg: ModelConfig):
@@ -272,19 +324,25 @@ def loss_fn(*args, **kw):
 
 def decode_step(params: Params, cfg: ModelConfig, state, batch, pos, *,
                 dist=None):
-    """One decode step. batch: {"tokens": (B, 1)}; state: from
-    decode_state_init; pos: (B,) write/attend position.
+    """One decode step. batch: {"tokens": (B, 1)} or {"frames": (B, 1,
+    D)}; state: from decode_state_init; pos: (B,) write/attend position.
+    A ``"ctx"`` in the batch is not read: cross-attention blocks read
+    their context cache in ``state``, as the JAX package's do.
 
     The KV caches and recurrent states in ``state`` are updated in place
     to save memory (the JAX package returns new ones); the same ``state``
-    is returned. Returns (logits (B, vocab) f32, state).
+    is returned. Returns (logits (B, vocab) f32, state). An int8 KV
+    cache behaves as the JAX package's (``_int8_kv_as_the_reference``):
+    promoted to the compute dtype with its scales dropped under
+    ``kv_update="onehot"``, a ``TypeError`` under ``"dus"``.
 
     A CPU ``pos`` at or past the KV cache's length raises ``ValueError``
     (``blocks.check_kv_room``), where the JAX package silently drops or
     clamps the cache update. A CUDA ``pos`` is not read on the host,
     which would cost a sync per step: its caller keeps it in range."""
-    _check_supported(cfg)
-    kv = next((st["kv"]["k"] for st in state if "kv" in st), None)
+    _int8_kv_as_the_reference(cfg, state)
+    kv = next((st["kv"]["k"] for blk, st in zip(cfg.pattern, state)
+               if blk.mixer == "attn"), None)
     if kv is not None:
         B.check_kv_room(pos, kv.shape[-2])
     x = _embed_tokens(params, cfg, batch, dist)
@@ -293,15 +351,16 @@ def decode_step(params: Params, cfg: ModelConfig, state, batch, pos, *,
         gp = _group(params["blocks"], g)
         gs = _group(state, g)
         for p, blk in enumerate(cfg.pattern):
-            x = _apply_block(gp[p], cfg, blk, x, positions, state=gs[p],
-                             pos=pos, dist=dist)
+            x, _ = _apply_block(gp[p], cfg, blk, x, positions, state=gs[p],
+                                pos=pos, dist=dist)
     x = B.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return _logits(params, cfg, x[:, 0]), state
 
 
 def prefill(params: Params, cfg: ModelConfig, batch, *, dist=None):
     """Full-sequence prefill returning last-position logits (B, vocab)
-    f32. On the card every attention layer runs the flash attention
-    kernel and every rwkv6 layer the WKV6 kernel, once each."""
-    x = forward(params, cfg, batch, dist=dist)
+    f32. On the card every self-attention layer runs the flash attention
+    kernel and every rwkv6 layer the WKV6 kernel, once each; a
+    cross-attention layer given ``batch["ctx"]`` runs plain torch ops."""
+    x, _ = forward(params, cfg, batch, dist=dist)
     return _logits(params, cfg, x[:, -1])

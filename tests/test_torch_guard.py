@@ -2,6 +2,9 @@
 entry points run on the card unless told otherwise, and a tensor that is
 not in host memory never takes a host path."""
 import ast
+import json
+import subprocess
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -203,3 +206,40 @@ def test_card_route_never_reaches_the_plain_version(kernel, monkeypatch):
     for call in calls:
         with pytest.raises(RuntimeError, match="kernel library requested"):
             call()
+
+
+_LEFTOVERS = """
+import json, multiprocessing as mp, os, sys, time
+from multiprocessing import resource_tracker, shared_memory
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+shm = shared_memory.SharedMemory(create=True, size=4096)  # starts the tracker
+shm.close()
+shm.unlink()
+tracker = resource_tracker._resource_tracker._pid
+rank = mp.get_context("fork").Process(target=time.sleep, args=(60,),
+                                      daemon=True)
+rank.start()
+chip_smoke.stop_children()
+try:
+    os.kill(tracker, 0)
+    tracker_gone = False
+except ProcessLookupError:
+    tracker_gone = True
+print(json.dumps({"children": chip_smoke._children(),
+                  "tracker_gone": tracker_gone,
+                  "rank_exitcode": rank.exitcode}))
+"""
+
+
+def test_smoke_leaves_no_process_running():
+    """chip_smoke.stop_children, which runs as the script exits, ends a
+    rank left alive and the multiprocessing resource tracker and reaps
+    both, so no process outlives the script."""
+    out = subprocess.run([sys.executable, "-c", _LEFTOVERS, str(ROOT)],
+                         capture_output=True, text=True, timeout=60)
+    assert out.returncode == 0, out.stderr
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got["children"] == [] and got["tracker_gone"], got
+    assert got["rank_exitcode"] is not None, got
+    assert "killing leftover" not in out.stderr, out.stderr
