@@ -90,17 +90,41 @@ Phases, each of which fails the run on error:
            neither grouping drops a token; vision with each
            cross-attention layer's decode cache filled with the
            context's K and V); peak card memory under 80 GB.
-5. report  the ``kernels`` JSON line (times at the main paths' shapes,
+5. train   training on the card (``TRAIN``, ``RESTART``): (a) dq, dk
+           and dv of ``flash_attention`` (the autograd Function: kernel
+           forward, torch-op backward) against autograd through
+           ``attention_ref`` at smollm-135m's and granite-moe's heads
+           and training batch, S = 128 and 4096, bf16 and f32, within
+           ``GRAD_TOL`` x max|g|; (b) smollm-135m at full width in f32:
+           ``loss_fn`` and every leaf's gradient on the card against the
+           CPU route, every layer's wq, wk and wv gradient non-zero;
+           (c) ``run_training`` of smollm-135m (8 x 4096) and
+           granite-moe-1b-a400m (3 x 4096), 6 steps each: finite losses,
+           step 0 near ln(vocab), one flash launch per self-attention
+           layer and forward, peak under 80 GB, tokens/s, a step split
+           into batch generation, forward + backward and optimizer
+           (``launch/train.py``'s ``grad_step`` and ``update_step``), and
+           the card's busy share from ``torch.profiler`` (device time
+           over the same step's wall time, at most 1); (d) under
+           ``torch.use_deterministic_algorithms(True)``, a run
+           interrupted by ``FailureInjector`` and resumed from a
+           ``CheckpointManager`` bitwise equal to an uninterrupted one
+           (smollm-135m; granite-moe cut to 2 layers), and the resumed
+           params + AdamW state through ``ArenaCheckpoint`` into a
+           mapped ``SharedMemoryPool`` and back, bitwise, one
+           ``cellcopy`` launch a leaf each way.
+6. report  the ``kernels`` JSON line (times at the main paths' shapes,
            ``cellcopy``'s beside ``Tensor.copy_`` (one at the serving
            tier's 4096 B page), its launches per path, ``flash_attention``
-           at every shape phase 4 launches it at, beside SDPA, with its
-           launches per model, ``wkv6``'s in cycles per token, and the
+           at every shape phases 4 and 5 launch it at, beside SDPA,
+           with its launches per model and training run, ``wkv6``'s in
+           cycles per token, and the
            f32 flash kernel at the parity prefill's shapes and at the
            long prompt, beside its FMA and split-TF32 bounds),
            one-way latency and bandwidth per path and size, one-sided
            latency and bandwidth per size, the serving tier's QPS and
-           latency, the serving numbers per model, and the card's name
-           and power limit.
+           latency, the serving numbers per model, the ``training``
+           line, and the card's name and power limit.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
 or outside a checkout of the repository, it exits non-zero and prints no
@@ -173,6 +197,32 @@ LONG_PROMPT = 4096
 # prefill (kernel) against teacher-forced decode (no kernel) in f32: the
 # two sum in other orders through 32 layers of random weights
 LOGIT_TOL = 1e-3
+
+# phase 5, training: published configs at train_4k's seq_len 4096, the
+# global batch (256) cut to what one H100 holds (granite-moe at 4 ran
+# out of the 80 GB: 21 GB of f32 params, grads and AdamW state, ~14 GB
+# of activations a sequence); STEPS steps each
+TRAIN = {"smollm-135m": 8, "granite-moe-1b-a400m": 3}
+TRAIN_STEPS = 6
+# (H, KV, D) of each trained model's self-attention layers
+TRAIN_HEADS = {(9, 3, 64): "smollm-135m", (16, 8, 64): "granite-moe-1b-a400m"}
+# (a) dq, dk, dv of the flash Function (kernel forward, torch-op
+# backward) against autograd through attention_ref on the card: max
+# |got - want| <= tol x max |want| of each gradient. bf16: both sides
+# round q, k, v, o and the gradients to bf16 (8 bits), at other places
+GRAD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# (b) smollm-135m in f32 compute, card (kernel forward, torch-op
+# backward) against the CPU (plain versions): loss relative, and each
+# leaf's gradient within tol x that leaf's max |g|
+MODEL_GRAD = {"batch": 2, "seq_len": 256, "loss_rtol": 1e-4,
+              "grad_tol": 1e-3}
+# (d) restart: steps uninterrupted, then a failure at step FAIL_AT and a
+# resume from the checkpoint written at CKPT_EVERY; smollm-135m and
+# granite-moe cut to 2 layers (the MoE scatter), short sequences
+RESTART = {"steps": 4, "fail_at": 3, "ckpt_every": 3, "seq_len": 256,
+           "global_batch": 2}
+RESTART_CUTS = {"smollm-135m": {},
+                "granite-moe-1b-a400m": {"n_layers": 2}}
 
 
 def fail(msg: str) -> None:
@@ -964,6 +1014,10 @@ FLASH_TIMED = [(hd, b, s, dt) for hd in FLASH_HEADS
                                 (1, LONG_PROMPT, "bfloat16"),
                                 (4, SERVE["prompt_len"], "float32"))]
 FLASH_TIMED.insert(3, ((32, 8, 128), 1, LONG_PROMPT, "float32"))
+# phase 5's launch shapes: each trained model's batch at S = 4096, bf16
+TRAIN_TIMED = [(hd, TRAIN[arch], LONG_PROMPT, "bfloat16")
+               for hd, arch in TRAIN_HEADS.items()]
+FLASH_TIMED += TRAIN_TIMED
 # every launch shape of phase 4 with its plain version, on top of the
 # edges above
 FLASH_CASES += [case for case in ((b, hd[0], hd[1], s, hd[2], True, dt)
@@ -1160,9 +1214,11 @@ def model_kernel_timings() -> tuple[list[dict], list[dict]]:
             (bound, by), fma = _bound_ms(flops, nbytes, dt), {}
         kind = "bf16" if dt == "bfloat16" else "f32"
         h, kv, d = heads
+        train = (heads, b, s, dt) in TRAIN_TIMED
         flash.append({
             "shape": f"B={b} H={h} KV={kv} S={s} D={d} {kind} causal",
-            "models": FLASH_HEADS[heads],
+            "models": ([f"{TRAIN_HEADS[heads]} (train)"] if train
+                       else FLASH_HEADS[heads]),
             "ms": kern, "issued_ms": kern_issued, "plain_ms": plain,
             "library_ms": lib, "bound_ms": bound, "bound_by": by, **fma,
             "TFLOPs": flops / kern / 1e9, "CTAs": plan["grid"]})
@@ -1434,6 +1490,359 @@ def model_phase(arch: str) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 5: training
+# ---------------------------------------------------------------------------
+
+def _grad_share(got, want, tol: float) -> float:
+    """max |got - want| / (tol x max |want|): at most 1 on a pass."""
+    g, w = got.float(), want.float()
+    return float((g - w).abs().max()) / (tol * max(float(w.abs().max()),
+                                                   1e-30))
+
+
+def train_grad_phase() -> dict:
+    """(a) dq, dk, dv of ``flash_attention`` (the autograd Function: the
+    kernel forward, launched once, and the torch-op backward) against
+    autograd through ``attention_ref`` on the same inputs on the card, at
+    each trained model's heads and batch, S = 128 and 4096, bf16 and
+    f32, causal; and the backward's own time (``bwd.attention_bwd``)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import bwd
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    g = torch.Generator(device="cuda").manual_seed(13)
+    cases = []
+    for (h, kv, d), arch in TRAIN_HEADS.items():
+        b = TRAIN[arch]
+        for s in (128, LONG_PROMPT):
+            for dt in ("bfloat16", "float32"):
+                what = f"B={b} H={h} KV={kv} S={s} D={d} {dt}"
+                q, k, v = (t.requires_grad_(True)
+                           for t in _flash_inputs(b, h, kv, s, d, dt, g))
+                do = _randn((b, h, s, d), g, dt)
+                before = fa.LAUNCHES
+                out = fa.flash_attention(q, k, v, causal=True)
+                if fa.LAUNCHES != before + 1 or type(
+                        out.grad_fn).__name__ != "FlashAttentionBackward":
+                    fail(f"train (a) {what}: the card route did not go "
+                         "through the Function's one launch")
+                out.backward(do)
+                got = [t.grad for t in (q, k, v)]
+                for t in (q, k, v):
+                    t.grad = None
+                fa_ref.attention_ref(q, k, v, causal=True).backward(do)
+                shares = {n: _grad_share(a, t.grad, GRAD_TOL[dt])
+                          for n, a, t in zip(("dq", "dk", "dv"), got,
+                                             (q, k, v))}
+                if not max(shares.values()) <= 1:
+                    fail(f"train (a) {what}: gradients differ from "
+                         f"autograd through attention_ref: {shares} of "
+                         f"{GRAD_TOL[dt]} x max|g|")
+                case = {"case": what, "tol": GRAD_TOL[dt],
+                        "share_of_tol": shares}
+                if s == LONG_PROMPT and dt == "bfloat16":
+                    o = out.detach()
+                    case["torch_op_bwd_ms"], _ = _time_ms(
+                        lambda: bwd.attention_bwd(q, k, v, o, do), 3, 1,
+                        spin=False)
+                cases.append(case)
+                del q, k, v, do, out, got
+    torch.cuda.empty_cache()
+    return {"cases": cases, "max_share_of_tol": {
+        dt: max(max(c["share_of_tol"].values()) for c in cases
+                if c["case"].endswith(dt)) for dt in GRAD_TOL}}
+
+
+def train_model_grad_phase() -> dict:
+    """(b) smollm-135m at full width in f32 compute: ``loss_fn`` and every
+    leaf's gradient on the card (kernel forward, torch-op backward;
+    TF32 off) against the port's CPU route (plain versions) from the
+    same weights and batch; every layer's wq, wk and wv get a non-zero
+    gradient on the card."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.models import lm
+    from repro_torch.train import data as D
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config("smollm-135m"),
+                              compute_dtype="float32")
+    batch = D.SyntheticLM(D.DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=MODEL_GRAD["seq_len"],
+        global_batch=MODEL_GRAD["batch"])).batch(0)
+    card = lm.init(cfg, 0, device="cuda")
+    cpu = lm._tree_map(lambda t: t.cpu(), card)
+    res = {}
+    for name, params in (("card", card), ("cpu", cpu)):
+        dev = next(lm.tree_leaves(params)).device
+        for t in lm.tree_leaves(params):
+            t.requires_grad_(True)
+        before = fa.LAUNCHES
+        t0 = time.perf_counter()
+        total, m = lm.loss_fn(params, cfg, {
+            k: torch.from_numpy(v).to(dev) for k, v in batch.items()})
+        total.backward()
+        if name == "card":
+            res["card_fwd_bwd_s"] = _sync_s(t0)
+            if fa.LAUNCHES - before != cfg.n_layers:
+                fail(f"train (b): {fa.LAUNCHES - before} flash launches, "
+                     f"want {cfg.n_layers}")
+        else:
+            res["cpu_fwd_bwd_s"] = time.perf_counter() - t0
+        res[f"{name}_loss"] = m["loss"].item()
+    for w in ("wq", "wk", "wv"):
+        g = card["blocks"][0]["mixer"][w].grad
+        zero = [i for i in range(cfg.n_groups) if not bool(g[i].any())]
+        if zero:
+            fail(f"train (b): {w}.grad is zero in layers {zero}")
+    loss_rel = abs(res["card_loss"] - res["cpu_loss"]) / abs(res["cpu_loss"])
+    share = 0.0
+    for a, b in zip(lm.tree_leaves(card), lm.tree_leaves(cpu)):
+        share = max(share, _grad_share(a.grad.cpu(), b.grad,
+                                       MODEL_GRAD["grad_tol"]))
+    res.update({"loss_rel_diff": loss_rel, "grad_max_share_of_tol": share,
+                **MODEL_GRAD, "every_layer_wq_wk_wv_grad_nonzero": True})
+    if not (loss_rel <= MODEL_GRAD["loss_rtol"] and share <= 1):
+        fail(f"train (b): card against CPU: loss rel diff {loss_rel:.3g} "
+             f"(tol {MODEL_GRAD['loss_rtol']}), gradient {share:.3g} of "
+             f"{MODEL_GRAD['grad_tol']} x max|g|")
+    del card, cpu
+    torch.cuda.empty_cache()
+    return res
+
+
+def train_run(arch: str) -> dict:
+    """(c) ``run_training`` of ``arch``'s published config at train_4k's
+    seq_len and ``TRAIN[arch]`` sequences a step, ``TRAIN_STEPS`` steps
+    (counts to 0 just before, read just after); then one more step timed
+    in parts (batch generation on the host, forward + backward, the
+    optimizer) and one under ``torch.profiler``, whose device time over
+    its own wall time is the card's busy share."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.kernels.cellcopy import ops as cc
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.rwkv6 import ops as wk
+    from repro_torch.launch import train as T
+    from repro_torch.train import data as D
+    from repro_torch.train import optimizer as opt
+    cfg = get_config(arch)
+    b = TRAIN[arch]
+    shape = dataclasses.replace(SHAPES["train_4k"], global_batch=b)
+    attn = prefill_launches(cfg)["flash_attention"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cc.LAUNCHES = fa.LAUNCHES = wk.LAUNCHES = 0
+    t0 = time.perf_counter()
+    out = T.run_training(cfg, shape, TRAIN_STEPS, quiet=True,
+                         device="cuda")
+    run_s = _sync_s(t0)
+    launches = {"flash_attention": fa.LAUNCHES, "wkv6": wk.LAUNCHES,
+                "cellcopy": cc.LAUNCHES}
+    hist = out["history"]
+    uniform = float(np.log(cfg.vocab_size))
+    res = {"arch": arch, "reduced": (
+        f"global batch 256 -> {b} (one card); {TRAIN_STEPS} steps"),
+        "seq_len": shape.seq_len, "global_batch": b, "history": hist,
+        "ln_vocab": uniform, "run_s": run_s,
+        "tokens_per_s": out["tokens_per_s"], "launches": launches,
+        "want_flash_launches": attn * TRAIN_STEPS,
+        "peak_GB": torch.cuda.max_memory_allocated() / 1e9}
+    if len(hist) != TRAIN_STEPS or not all(map(np.isfinite, hist)):
+        fail(f"train (c) {arch}: losses {hist}")
+    if not abs(hist[0] - uniform) < 1.0:
+        fail(f"train (c) {arch}: step 0's loss {hist[0]:.3f}, not near "
+             f"ln(vocab) = {uniform:.3f}")
+    if launches != {"flash_attention": attn * TRAIN_STEPS, "wkv6": 0,
+                    "cellcopy": 0}:
+        fail(f"train (c) {arch}: launches {launches}, want "
+             f"{attn} self-attention layers x {TRAIN_STEPS} forwards")
+
+    params, state = out["params"], out["opt_state"]
+    oc = opt.for_model(cfg)
+    ds = D.SyntheticLM(D.for_model(cfg, shape, 0))
+
+    def step(i: int) -> dict:
+        """``run_training``'s step (``grad_step``, ``update_step``) with a
+        sync after each part; the seconds of each part."""
+        t = {"t0": time.perf_counter()}
+        host = ds.batch(i)
+        t["gen"] = time.perf_counter()
+        batch = {k: torch.from_numpy(v).cuda() for k, v in host.items()}
+        torch.cuda.synchronize()
+        t["h2d"] = time.perf_counter()
+        grads, _ = T.grad_step(params, cfg, batch)
+        torch.cuda.synchronize()
+        t["fwd_bwd"] = time.perf_counter()
+        T.update_step(params, oc, state, grads)
+        torch.cuda.synchronize()
+        t["opt"] = time.perf_counter()
+        keys = list(t)
+        return {f"{k}_s": t[k] - t[p] for p, k in zip(keys, keys[1:])}
+
+    split = step(TRAIN_STEPS)
+    wall = sum(split.values())
+    # the busy share: device time and wall time of the same (profiled)
+    # step; the profiler's host overhead only lengthens the wall
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        traced = step(TRAIN_STEPS + 1)
+    traced_wall = sum(traced.values())
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    device_s = sum(e.self_device_time_total for e in kernels) / 1e6
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    res.update({
+        "step_split_s": split, "step_s": wall,
+        "steady_tokens_per_s": b * shape.seq_len / wall,
+        "traced_step_split_s": traced, "traced_step_s": traced_wall,
+        "device_s": device_s, "busy_share": device_s / traced_wall,
+        "busy_share_without_batch_gen":
+            device_s / (traced_wall - traced["gen_s"]),
+        "top_kernels_ms": {e.key[:60]: e.self_device_time_total / 1e3
+                           for e in top},
+        "peak_GB": torch.cuda.max_memory_allocated() / 1e9})
+    if not 0 < res["busy_share_without_batch_gen"] <= 1:
+        fail(f"train (c) {arch}: {device_s:.4f} s of device time in a "
+             f"step of {traced_wall:.4f} s, "
+             f"{traced_wall - traced['gen_s']:.4f} s without batch "
+             "generation")
+    if not res["peak_GB"] < 80:
+        fail(f"train (c) {arch}: peak card memory {res['peak_GB']:.1f} GB")
+    del out, params, state
+    torch.cuda.empty_cache()
+    return res
+
+
+def train_restart_phase() -> dict:
+    """(d) under ``torch.use_deterministic_algorithms(True)``: for each
+    config of ``RESTART_CUTS``, ``run_training`` uninterrupted, then with
+    a ``FailureInjector`` firing at step ``fail_at`` and a resume from a
+    ``CheckpointManager`` in a temporary directory: params and optimizer
+    state bitwise equal. Then the resumed smollm-135m params + state
+    through ``ArenaCheckpoint`` into a ``SharedMemoryPool`` mapped into
+    the card and back into fresh tensors: bitwise equal, each leaf in
+    and out by one ``cellcopy`` launch (counts to 0 just before, read
+    just after)."""
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.core import Arena, SharedMemoryPool
+    from repro_torch.kernels.cellcopy import ops as cc
+    from repro_torch.launch import train as T
+    from repro_torch.models import lm
+    from repro_torch.train.checkpoint import ArenaCheckpoint
+    from repro_torch.train.fault import FailureInjector, InjectedFailure
+    shape = dataclasses.replace(SHAPES["train_4k"],
+                                seq_len=RESTART["seq_len"],
+                                global_batch=RESTART["global_batch"])
+    n = RESTART["steps"]
+    kw = dict(quiet=True, device="cuda")
+    res: dict = {**RESTART, "deterministic": True}
+    torch.use_deterministic_algorithms(True)
+    try:
+        for arch, cut in RESTART_CUTS.items():
+            cfg = dataclasses.replace(get_config(arch), **cut)
+            ref = T.run_training(cfg, shape, n, **kw)
+            with tempfile.TemporaryDirectory() as d:
+                ck = dict(ckpt_dir=d, ckpt_every=RESTART["ckpt_every"])
+                try:
+                    T.run_training(cfg, shape, n, injector=FailureInjector(
+                        fail_at_step=RESTART["fail_at"]), **ck, **kw)
+                    fail(f"train (d) {arch}: the injected failure never "
+                         "fired")
+                except InjectedFailure:
+                    pass
+                t0 = time.perf_counter()
+                out = T.run_training(cfg, shape, n, **ck, **kw)
+                resume_s = _sync_s(t0)
+            if out["history"] != ref["history"][RESTART["fail_at"]:]:
+                fail(f"train (d) {arch}: resumed losses {out['history']}, "
+                     f"uninterrupted {ref['history']}")
+            tree, want = ((out["params"], out["opt_state"]),
+                          (ref["params"], ref["opt_state"]))
+            diff = [i for i, (a, b) in enumerate(zip(
+                lm.tree_leaves(tree), lm.tree_leaves(want)))
+                if not torch.equal(a, b)]
+            if diff:
+                fail(f"train (d) {arch}: restart not bitwise: leaves {diff}")
+            res[arch] = {"cut": cut or None, "history": ref["history"],
+                         "resume_s": resume_s, "bitwise": True}
+            if arch == "smollm-135m":
+                arena_tree = tree
+        tree = arena_tree
+        leaves = list(lm.tree_leaves(tree))
+        nbytes = sum(t.numel() * t.element_size() for t in leaves)
+        pool = SharedMemoryPool(nbytes + len(leaves) * 64 + 64 * MiB,
+                                device="cuda")
+        try:
+            ck = ArenaCheckpoint(Arena(pool, 0, initialize=True), "train")
+            like = lm._tree_map(torch.empty_like, tree)
+            cc.LAUNCHES = 0
+            t0 = time.perf_counter()
+            ck.save(n, tree)
+            save_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            step, got = ck.restore(like)
+            restore_s = _sync_s(t0)
+            launches = cc.LAUNCHES
+        finally:
+            pool.close()
+            pool.unlink()
+        if step != n or any(not torch.equal(a, b) for a, b in zip(
+                lm.tree_leaves(got), leaves)):
+            fail("train (d): ArenaCheckpoint round trip not bitwise")
+        if launches != 2 * len(leaves):
+            fail(f"train (d): {launches} cellcopy launches for "
+                 f"{len(leaves)} leaves in and out")
+        res["arena"] = {"leaves": len(leaves), "GB": nbytes / 1e9,
+                        "save_s": save_s, "restore_s": restore_s,
+                        "save_GB_per_s": nbytes / save_s / 1e9,
+                        "restore_GB_per_s": nbytes / restore_s / 1e9,
+                        "cellcopy_launches": launches, "bitwise": True}
+    finally:
+        torch.use_deterministic_algorithms(False)
+    torch.cuda.empty_cache()
+    return res
+
+
+def train_phase() -> dict:
+    """Phase 5: (a) the attention gradient, (b) a full-width model's
+    gradients, card against CPU, (c) training at full width, (d) the
+    restart and the arena checkpoint."""
+    res = {}
+    for name, fn in (("grad", train_grad_phase),
+                     ("model_grad", train_model_grad_phase)):
+        t0 = time.perf_counter()
+        res[name] = fn()
+        say(f"[train] {name}: {json.dumps(res[name])} "
+            f"({time.perf_counter() - t0:.1f} s)")
+    for arch in TRAIN:
+        t0 = time.perf_counter()
+        res[arch] = train_run(arch)
+        say(f"[train] {json.dumps(res[arch])} "
+            f"({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    res["restart"] = train_restart_phase()
+    say(f"[train] restart: {json.dumps(res['restart'])} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return res
+
+
 def _ptxas_kernels(log: str) -> dict:
     """{mangled name: {"registers", "spill_stores", "spill_loads"}} of
     every entry function in nvcc's ``-Xptxas -v`` output."""
@@ -1702,6 +2111,9 @@ def _reap(pid: int, flags: int) -> int:
 
 
 def main() -> None:
+    # phase 5's restart runs under torch.use_deterministic_algorithms,
+    # whose cuBLAS needs this set before the first CUDA call
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     if not torch.cuda.is_available():
         fail("no CUDA device (torch.cuda.is_available() is false)")
@@ -1797,7 +2209,13 @@ def main() -> None:
         say(f"[model] {json.dumps(models[arch])} "
             f"({time.perf_counter() - t0:.1f} s)")
 
-    # 5. report
+    # 5. training, each path's counts to 0 just before and read just
+    # after it (in train_run and train_restart_phase)
+    t0 = time.perf_counter()
+    training = train_phase()
+    say(f"[train] phase {time.perf_counter() - t0:.1f} s")
+
+    # 6. report
     for r in rows:
         say(f"[time] {json.dumps(r)}")
     flash_rows, wkv_rows = model_kernel_timings()
@@ -1805,7 +2223,9 @@ def main() -> None:
         say(f"[time] {json.dumps(r)}")
     head = rows[0]
     by_path = {"message_plane": sum(launches),
-               "window": sum(win_launches), "serve": sum(serve_launches)}
+               "window": sum(win_launches), "serve": sum(serve_launches),
+               "train_arena_checkpoint":
+                   training["restart"]["arena"]["cellcopy_launches"]}
     entries = [{
         "name": "cellcopy", "route": "cuda",
         "source": "src/repro_torch/csrc/cellcopy.cu",
@@ -1830,6 +2250,8 @@ def main() -> None:
                     and " bf16 " in r["shape"])
         by_model = {a: m["launches"][name] for a, m in models.items()
                     if m["launches"][name]}
+        by_model.update({f"{a} (train)": training[a]["launches"][name]
+                         for a in TRAIN if training[a]["launches"][name]})
         entries.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{src}", "replaces": replaces,
@@ -1852,6 +2274,8 @@ def main() -> None:
         "reduced", "serve", "decode_profile", "prefill",
         "f32_prefill_vs_decode", "init_s", "param_GB")}
         for a, m in models.items()}}))
+    say(json.dumps({"training": {k: training[k] for k in (
+        "grad", "model_grad", *TRAIN, "restart")}}))
     say(f"[done] {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": entries}))
     say(nvidia_smi())

@@ -355,6 +355,15 @@ class Arena:
             raise IndexError("read beyond object")
         return self.view.read_acquire(handle.offset + off, n)
 
+    def read_into(self, handle: ObjHandle, off: int, dst) -> int:
+        """Fill the writable buffer ``dst`` (host memory, or a flat uint8
+        CUDA tensor, which the pool's device window fills with the
+        ``cellcopy`` kernel) from the object at ``off``."""
+        n = len(dst)
+        if off < 0 or off + n > handle.size:
+            raise IndexError("read beyond object")
+        return self.view.read_acquire_into(handle.offset + off, dst)
+
     # ------------------------------------------------------------------
     def stats(self) -> dict:
         used = 0

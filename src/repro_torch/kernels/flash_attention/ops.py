@@ -9,6 +9,14 @@ TF32 wgmma products of operands split into hi and lo parts, which keeps
 f32 accuracy (``launch_plan`` gives each kernel's launch and tiles).
 ``LAUNCHES`` counts kernel launches, so a run can show that its path
 went through the kernel.
+
+Autograd: on the CPU it runs through the plain version, as the JAX
+package differentiates its oracle. On the card every call goes through
+``FlashAttention``, an autograd Function whose forward is the kernel
+launch (counted once) and whose backward is ``bwd.attention_bwd``, torch
+ops that recompute the softmax a block of query rows at a time. Without
+grad (``torch.no_grad``, or no input that requires it) the Function runs
+its forward and records no graph.
 """
 from __future__ import annotations
 
@@ -17,7 +25,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import route
-from repro_torch.kernels.flash_attention import ref
+from repro_torch.kernels.flash_attention import bwd, ref
 
 HEAD_DIMS = (32, 64, 128)        # template instances of the kernel
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -142,6 +150,29 @@ def _launch(q, k, v, causal: bool, heads: int) -> torch.Tensor:
     return out
 
 
+class FlashAttention(torch.autograd.Function):
+    """The kernel with a gradient: forward ``_launch``, backward
+    ``bwd.attention_bwd`` (torch ops) on the saved q, k, v and output."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, heads: int):
+        out = _launch(q, k, v, causal, heads)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.causal, ctx.heads = causal, heads
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        if ctx.heads == 2:               # BSHD views as BHSD, and back
+            q, k, v, out, dout = (t.transpose(1, 2)
+                                  for t in (q, k, v, out, dout))
+        grads = bwd.attention_bwd(q, k, v, out, dout, causal=ctx.causal)
+        if ctx.heads == 2:
+            grads = tuple(t.transpose(1, 2) for t in grads)
+        return (*grads, None, None)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
     """q: (B, H, S, D); k, v: (B, KV, S, D) with H % KV == 0. Returns
@@ -149,7 +180,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _check(q, k, v, heads=1)
     if route("flash_attention", q, k, v) == "cpu":
         return ref.attention_ref(q, k, v, causal=causal)
-    return _launch(q, k, v, causal, heads=1)
+    return FlashAttention.apply(q, k, v, causal, 1)
 
 
 def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -162,4 +193,4 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         out = ref.attention_ref(q.transpose(1, 2), k.transpose(1, 2),
                                 v.transpose(1, 2), causal=causal)
         return out.transpose(1, 2)
-    return _launch(q, k, v, causal, heads=2)
+    return FlashAttention.apply(q, k, v, causal, 2)

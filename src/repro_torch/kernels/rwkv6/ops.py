@@ -4,6 +4,13 @@ A tensor on the CPU goes to the plain version in ``ref``; a tensor on the
 card launches the kernel, and anything else raises. There is no fallback
 from one to the other. ``LAUNCHES`` counts kernel launches, so a run can
 show that its path went through the kernel.
+
+Autograd: on the CPU it runs through the plain version. The kernel has
+no backward yet, so a call on the card where any input requires grad
+raises ``NotImplementedError`` (``ROADMAP.md`` Queue 1, "wkv6 backward
+kernel and rwkv6 training on the card"): it neither detaches the output
+nor falls back to the plain version. Under ``torch.no_grad`` the call is
+the launch.
 """
 from __future__ import annotations
 
@@ -89,12 +96,22 @@ def _launch(r, k, v, w, u, heads: int) -> torch.Tensor:
     return out
 
 
+def _no_grad_on_card(*ts: torch.Tensor) -> None:
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        raise NotImplementedError(
+            "wkv6 has no backward on the card: the kernel's gradient is "
+            "not ported yet (ROADMAP.md Queue 1, \"wkv6 backward kernel "
+            "and rwkv6 training on the card\"); train rwkv6 on the CPU, "
+            "or call wkv6 under torch.no_grad()")
+
+
 def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
          u: torch.Tensor) -> torch.Tensor:
     """r,k,v,w: (B, H, S, n); u: (H, n). Returns (B, H, S, n) f32."""
     _check(r, k, v, w, u, heads=1)
     if route("wkv6", r, k, v, w, u) == "cpu":
         return ref.wkv6_ref(r, k, v, w, u)
+    _no_grad_on_card(r, k, v, w, u)
     return _launch(r, k, v, w, u, heads=1)
 
 
@@ -107,4 +124,5 @@ def wkv6_bshn(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if route("wkv6", r, k, v, w, u) == "cpu":
         args = (a.transpose(1, 2) for a in (r, k, v, w))
         return ref.wkv6_ref(*args, u).transpose(1, 2)
+    _no_grad_on_card(r, k, v, w, u)
     return _launch(r, k, v, w, u, heads=2)

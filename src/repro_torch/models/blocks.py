@@ -13,6 +13,15 @@ Cross-attention (queries and keys of different lengths), the MoE
 dispatch and the Mamba scan are plain torch ops on both devices, as the
 JAX package computes them outside any Pallas kernel.
 
+Training (``lm.loss_fn``, driven by ``launch/train.py``) differentiates
+these functions with autograd. On the CPU the gradient runs through the
+plain versions. On the card the self-attention gradient is the flash
+kernel's torch-op backward (``kernels/flash_attention/bwd.py``: the
+softmax recomputed a block of query rows at a time), and an rwkv6 layer
+raises ``NotImplementedError`` under grad, since ``wkv6`` has no
+backward there yet; every other block's gradient is autograd's through
+its torch ops.
+
 The distribution hooks (``dist``, among them the expert-parallel
 ``moe_apply_ep``) are not ported yet (``ROADMAP.md`` Queue 1).
 """
@@ -418,15 +427,21 @@ def moe_apply(params: Params, cfg: ModelConfig, x):
     top_p, top_e = _top_k(probs, K)                              # (G,T,K)
     top_p = top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9)
 
-    # position of each (token, k) inside its expert queue
-    onehot = F.one_hot(top_e, E).float()                         # (G,T,K,E)
+    # position of each (token, k) inside its expert queue: the JAX
+    # package's cumsum of the one-hot over the (token, k) axis, in int64
+    # (the same counts; a float cumsum on the card has no deterministic
+    # implementation), as the last axis of a (G, E, T*K) copy: a scan
+    # along a middle axis runs one thread per (group, expert) down
+    # T*K rows on the card
+    onehot = F.one_hot(top_e, E)                                 # (G,T,K,E)
     flat = onehot.reshape(groups, gtok * K, E)
-    pos = torch.cumsum(flat, dim=1) - flat
+    pos = flat.transpose(1, 2).contiguous().cumsum(-1).transpose(1, 2) \
+        - flat
     pos = (pos * flat).sum(-1).reshape(groups, gtok, K)
     keep = pos < C
     # the slot each (token, k) writes, flat over (E, C); dropped ones all
     # write the sentinel into (0, C - 1)
-    slot = torch.where(keep, top_e * C + pos.long(), C - 1).reshape(
+    slot = torch.where(keep, top_e * C + pos, C - 1).reshape(
         groups, gtok * K)
     tok_ids = torch.arange(gtok, device=dev)[None, :, None].expand(
         groups, gtok, K)
@@ -451,12 +466,14 @@ def moe_apply(params: Params, cfg: ModelConfig, x):
     mine = keep.reshape(groups, gtok * K) & (dispatch.gather(1, slot)
                                              == vals)
     w = torch.where(mine, top_p.reshape(groups, gtok * K), 0.0)
-    picked = expert_out.reshape(groups, E * C, d)[rows, slot].float()
+    # the f32 product of the gathered outputs (upcast exactly) and their
+    # f32 weights; autograd keeps the gathered outputs in their own type
+    picked = expert_out.reshape(groups, E * C, d)[rows, slot]
     y = (picked * w[..., None]).reshape(groups, gtok, K, d).sum(2).to(cdt)
 
     # load-balancing auxiliary loss (Switch-style)
     me = probs.mean(dim=(0, 1))                                  # (E,)
-    ce = onehot.sum(dim=2).mean(dim=(0, 1))      # fraction routed per e
+    ce = onehot.sum(dim=2).float().mean(dim=(0, 1))  # fraction routed
     aux = E * torch.sum(me * ce / K)
     if s == 1:
         y = y.reshape(b, s, d)

@@ -8,8 +8,14 @@ it is. The JAX package's ``lax.scan`` over groups is a Python loop here.
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
 Every config of ``configs.ARCHS`` initialises, runs ``forward``,
-``prefill`` and ``decode_step`` and serves. Not ported yet (``ROADMAP.md``
-Queue 1): ``dist``, ``loss_fn`` and training.
+``prefill`` and ``decode_step`` and serves. ``loss_fn`` is the training
+entry point (``launch/train.py``'s step differentiates it with
+``backward``): on the CPU autograd runs through the plain versions, as
+the JAX package differentiates its oracles; on the card the attention
+gradient is the flash kernel's torch-op backward
+(``kernels/flash_attention/bwd.py``), and an rwkv6 layer raises, since
+``wkv6`` has no backward there yet. Not ported yet (``ROADMAP.md``
+Queue 1): ``dist``.
 """
 from __future__ import annotations
 
@@ -20,7 +26,6 @@ import torch
 
 from repro_torch.configs.base import BlockSpec, ModelConfig
 from repro_torch.models import blocks as B
-from repro_torch.models.blocks import unported
 
 Params = dict[str, Any]
 
@@ -55,6 +60,24 @@ def tree_leaves(tree):
             yield from tree_leaves(v)
     else:
         yield tree
+
+
+def tree_unflatten(like, leaves):
+    """A tree shaped as ``like`` whose leaves are ``leaves``, taken in
+    ``tree_leaves`` order (``jax.tree``'s unflatten)."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            return {k: build(t[k]) for k in sorted(t)}
+        if isinstance(t, (tuple, list)):
+            return type(t)(build(v) for v in t)
+        return next(it)
+
+    out = build(like)
+    if next(it, None) is not None:
+        raise ValueError("tree_unflatten: more leaves than the tree holds")
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -176,26 +199,32 @@ def decode_state_init(cfg: ModelConfig, batch: int, cache_len: int, *,
     return tuple(state)
 
 
-def _int8_kv_as_the_reference(cfg: ModelConfig, state) -> None:
-    """The JAX package's decode step over an int8 KV cache, in place.
+def _kv_cache_as_the_reference(cfg: ModelConfig, state) -> None:
+    """The JAX package's decode step over its KV cache's type, in place.
 
-    It quantizes nothing: under ``kv_update="onehot"`` its update adds
-    compute-dtype values to the int8 cache, which promotes the cache to
-    the compute dtype, and the state it returns holds ``k`` and ``v``
-    only (the scales are gone); under ``"dus"`` its scatter refuses the
-    mixed types with a ``TypeError``. This mirrors that behaviour
-    (``ROADMAP.md`` Queue 3); it is not a design of an int8 cache."""
+    Under ``kv_update="dus"`` its scatter refuses an update whose type
+    differs from the cache's ``kv_cache_dtype`` with a ``TypeError``: an
+    int8 cache, or a float one of another type than the compute dtype
+    (a bfloat16 cache under f32 compute). The port holds a float cache in
+    the promoted type and could run, but raises the same error.
+
+    An int8 cache quantizes nothing: under ``"onehot"`` the JAX package
+    adds compute-dtype values to it, which promotes the cache to the
+    compute dtype, and the state it returns holds ``k`` and ``v`` only
+    (the scales are gone). This mirrors that behaviour (``ROADMAP.md``
+    Queue 3); it is not a design of an int8 cache."""
     cdt = B._dtype(cfg)
+    kv_dt = getattr(torch, cfg.kv_cache_dtype)
+    if (cfg.kv_update == "dus" and kv_dt != cdt
+            and any(blk.mixer == "attn" for blk in cfg.pattern)):
+        raise TypeError(
+            f"decode_step: a {kv_dt} KV cache takes no {cdt} update under "
+            f"kv_update='dus' (the JAX package's lax.scatter requires "
+            f"arguments to have the same dtypes)")
     for blk, st in zip(cfg.pattern, state):
-        if blk.mixer != "attn" or st["kv"]["k"].dtype.is_floating_point:
-            continue
-        kv = st["kv"]
-        if cfg.kv_update == "dus":
-            raise TypeError(
-                f"decode_step: a {kv['k'].dtype} KV cache takes no "
-                f"{cdt} update under kv_update='dus' (the JAX package's "
-                f"lax.scatter requires arguments to have the same dtypes)")
-        st["kv"] = {"k": kv["k"].to(cdt), "v": kv["v"].to(cdt)}
+        if blk.mixer == "attn" and not st["kv"]["k"].dtype.is_floating_point:
+            kv = st["kv"]
+            st["kv"] = {"k": kv["k"].to(cdt), "v": kv["v"].to(cdt)}
 
 
 # --------------------------------------------------------------------------
@@ -262,6 +291,15 @@ def _group(tree, g: int):
     return _tree_map(lambda t: t[g], tree)
 
 
+def _groups(tree, n: int) -> list:
+    """Every group's parameters, views into the stack from one
+    ``unbind`` a leaf: its backward stacks the groups' gradients once,
+    where indexing each group would add a stack-sized gradient per
+    group."""
+    leaves = [t.unbind(0) for t in tree_leaves(tree)]
+    return [tree_unflatten(tree, [t[g] for t in leaves]) for g in range(n)]
+
+
 # --------------------------------------------------------------------------
 # forward (prefill)
 # --------------------------------------------------------------------------
@@ -294,8 +332,7 @@ def forward(params: Params, cfg: ModelConfig, batch, *, dist=None):
     if ctx is not None:
         ctx = torch.as_tensor(ctx, device=x.device).to(x.dtype)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for g in range(cfg.n_groups):
-        gp = _group(params["blocks"], g)
+    for gp in _groups(params["blocks"], cfg.n_groups):
         for p, blk in enumerate(cfg.pattern):
             x, a = _apply_block(gp[p], cfg, blk, x, positions, ctx=ctx,
                                 dist=dist)
@@ -314,8 +351,24 @@ def _logits(params, cfg: ModelConfig, x_last):
     return logits[..., :cfg.vocab_size]
 
 
-def loss_fn(*args, **kw):
-    raise unported("loss_fn and training", "Queue 1, loss_fn and training")
+def loss_fn(params: Params, cfg: ModelConfig, batch, *, dist=None):
+    """Cross-entropy LM loss over ``batch["labels"]`` (B, S), masked
+    where a label is < 0. Returns (loss + 0.01 * the MoE aux loss,
+    {"loss", "aux", "tokens"}), f32 scalars. The logits are the compute
+    dtype's product, in f32, sliced to ``vocab_size``."""
+    B._no_dist(dist)            # the vocab-parallel cross-entropy too
+    x, aux = forward(params, cfg, batch, dist=dist)
+    labels = torch.as_tensor(batch["labels"], device=x.device).long()
+    head = lm_head(params, cfg)
+    logits = (x @ head.to(x.dtype).T).float()[..., :cfg.vocab_size]
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.take_along_dim(logits, labels.clamp(min=0)[..., None],
+                              dim=-1)[..., 0]
+    ce = lse - ll
+    mask = (labels >= 0).float()
+    loss = (ce * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    total = loss + 0.01 * aux
+    return total, {"loss": loss, "aux": aux, "tokens": mask.sum()}
 
 
 # --------------------------------------------------------------------------
@@ -332,15 +385,16 @@ def decode_step(params: Params, cfg: ModelConfig, state, batch, pos, *,
     The KV caches and recurrent states in ``state`` are updated in place
     to save memory (the JAX package returns new ones); the same ``state``
     is returned. Returns (logits (B, vocab) f32, state). An int8 KV
-    cache behaves as the JAX package's (``_int8_kv_as_the_reference``):
+    cache behaves as the JAX package's (``_kv_cache_as_the_reference``):
     promoted to the compute dtype with its scales dropped under
-    ``kv_update="onehot"``, a ``TypeError`` under ``"dus"``.
+    ``kv_update="onehot"``; under ``"dus"`` a cache whose
+    ``kv_cache_dtype`` is not the compute dtype raises ``TypeError``.
 
     A CPU ``pos`` at or past the KV cache's length raises ``ValueError``
     (``blocks.check_kv_room``), where the JAX package silently drops or
     clamps the cache update. A CUDA ``pos`` is not read on the host,
     which would cost a sync per step: its caller keeps it in range."""
-    _int8_kv_as_the_reference(cfg, state)
+    _kv_cache_as_the_reference(cfg, state)
     kv = next((st["kv"]["k"] for blk, st in zip(cfg.pattern, state)
                if blk.mixer == "attn"), None)
     if kv is not None:

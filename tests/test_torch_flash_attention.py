@@ -420,3 +420,129 @@ def test_launch_plan_fits_and_hands_out_longest_blocks_first(d, dtype):
                 assert set(tiles) == {n_kv}
     if dtype == torch.float32:       # Q hi/lo + 2 stages of 4 tiles
         assert ops.smem_bytes(d, dtype) == 1536 * d + 32 + 1024
+
+
+# --------------------------------------------------------------------------
+# the gradient: bwd.attention_bwd (the card's backward, torch ops) and
+# the autograd Function around the kernel
+# --------------------------------------------------------------------------
+
+# (b, h, kv, s, d, causal, block_q): causal and full, GQA groups 1 to 4,
+# D 64 and 128, S not a multiple of the query block (100 = 2 x 48 + 4,
+# 77 = 2 x 32 + 13) and S below one block
+BWD_CASES = [(2, 4, 2, 100, 64, True, 48), (1, 4, 1, 77, 128, False, 32),
+             (2, 2, 2, 64, 64, False, 48), (1, 8, 2, 77, 128, True, 32),
+             (1, 3, 1, 40, 64, True, 1024)]
+# f32 gradients within BWD_TOL of the largest |g| of each input (both
+# sides f32 with summation order only apart)
+BWD_TOL = 1e-5
+
+
+def _bwd_inputs(rng, b, h, kv, s, d):
+    (jq, jk, jv), (tq, tk, tv) = _qkv(rng, b, h, kv, s, d)
+    do = rng.standard_normal((b, h, s, d), dtype=np.float32)
+    return (jq, jk, jv), (tq, tk, tv), do
+
+
+def _close_grads(got, want):
+    for g, w in zip(got, want):
+        g, w = _f32(g), _f32(w)
+        assert g.shape == w.shape
+        assert np.abs(g - w).max() <= BWD_TOL * np.abs(w).max()
+
+
+@pytest.mark.parametrize("b,h,kv,s,d,causal,block_q", BWD_CASES)
+def test_torch_op_backward_matches_autograd_and_jax_vjp(
+        b, h, kv, s, d, causal, block_q, rng):
+    """``bwd.attention_bwd`` in blocks of ``block_q`` query rows against
+    autograd through the plain version and against ``jax.vjp`` of the
+    JAX package's oracle, on the same numpy inputs."""
+    import jax
+
+    from repro.kernels.flash_attention.ref import \
+        attention_ref as jax_oracle
+    from repro_torch.kernels.flash_attention import bwd
+
+    (jq, jk, jv), (tq, tk, tv), do = _bwd_inputs(rng, b, h, kv, s, d)
+    out = ref.attention_ref(tq, tk, tv, causal=causal)
+    got = bwd.attention_bwd(tq, tk, tv, out, torch.from_numpy(do),
+                            causal=causal, block_q=block_q)
+    assert [g.dtype for g in got] == [torch.float32] * 3
+    leaves = [t.clone().requires_grad_(True) for t in (tq, tk, tv)]
+    ref.attention_ref(*leaves, causal=causal).backward(torch.from_numpy(do))
+    _close_grads(got, [t.grad for t in leaves])
+    _, vjp = jax.vjp(lambda q, k, v: jax_oracle(q, k, v, causal=causal),
+                     jq, jk, jv)
+    _close_grads(got, vjp(jnp.asarray(do)))
+
+
+def test_torch_op_backward_returns_the_input_dtypes(rng):
+    """bf16 inputs: the gradients in bf16, near the f32 gradients of the
+    same values (bf16 rounding of q, k, v, o and the results only)."""
+    from repro_torch.kernels.flash_attention import bwd
+
+    _, (tq, tk, tv), do = _bwd_inputs(rng, 1, 4, 2, 96, 64)
+    bf = [t.bfloat16() for t in (tq, tk, tv)]
+    f32 = [t.float() for t in bf]
+    dob = torch.from_numpy(do).bfloat16()
+    got = bwd.attention_bwd(*bf, ref.attention_ref(*bf), dob, block_q=32)
+    want = bwd.attention_bwd(*f32, ref.attention_ref(*f32), dob.float())
+    assert [g.dtype for g in got] == [torch.bfloat16] * 3
+    for g, w in zip(got, want):
+        assert float((g.float() - w).abs().max()) <= 2e-2 * float(
+            w.abs().max())
+
+
+def _launch_plainly(monkeypatch):
+    """The card route with ``_launch`` replaced by the plain version in
+    its layout (and counted, as the launch is): the Function's plumbing
+    on the CPU."""
+    calls = []
+
+    def launch(q, k, v, causal, heads):
+        calls.append(heads)
+        ops.LAUNCHES += 1
+        if heads == 1:
+            return ref.attention_ref(q, k, v, causal=causal)
+        return ref.attention_ref(*(t.transpose(1, 2) for t in (q, k, v)),
+                                 causal=causal).transpose(1, 2)
+
+    monkeypatch.setattr(ops, "route", lambda name, *ts: "cuda")
+    monkeypatch.setattr(ops, "_launch", launch)
+    return calls
+
+
+@pytest.mark.parametrize("layout", ["bhsd", "bshd"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_function_on_the_card_route(layout, causal, monkeypatch, rng):
+    """With an input that requires grad, the card route runs the
+    Function: one launch per forward and none in the backward, the
+    output and gradients those of autograd through the plain version;
+    without (``torch.no_grad``, or no input requiring grad), the
+    Function's forward alone: one launch and no graph."""
+    calls = _launch_plainly(monkeypatch)
+    heads = 1 if layout == "bhsd" else 2
+    call = ops.flash_attention if heads == 1 else ops.flash_attention_bshd
+    _, (tq, tk, tv), do = _bwd_inputs(rng, 2, 4, 2, 70, 64)
+    if heads == 2:
+        tq, tk, tv = (t.transpose(1, 2).contiguous() for t in (tq, tk, tv))
+        do = np.ascontiguousarray(do.transpose(0, 2, 1, 3))
+    leaves = [t.clone().requires_grad_(True) for t in (tq, tk, tv)]
+    launches = ops.LAUNCHES
+    out = call(*leaves, causal=causal)
+    assert type(out.grad_fn).__name__ == "FlashAttentionBackward"
+    assert ops.LAUNCHES == launches + 1 and calls == [heads]
+    out.backward(torch.from_numpy(do))
+    assert ops.LAUNCHES == launches + 1           # no launch backward
+    plain = [t.clone().requires_grad_(True) for t in (tq, tk, tv)]
+    monkeypatch.setattr(ops, "route", lambda name, *ts: "cpu")
+    want = call(*plain, causal=causal)
+    want.backward(torch.from_numpy(do))
+    np.testing.assert_allclose(_f32(out.detach()), _f32(want.detach()),
+                               rtol=1e-6, atol=1e-6)
+    _close_grads([t.grad for t in leaves], [t.grad for t in plain])
+    monkeypatch.setattr(ops, "route", lambda name, *ts: "cuda")
+    with torch.no_grad():
+        assert call(*leaves, causal=causal).grad_fn is None
+    assert call(tq, tk, tv, causal=causal).grad_fn is None
+    assert ops.LAUNCHES == launches + 3 and calls == [heads] * 3

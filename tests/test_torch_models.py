@@ -385,3 +385,39 @@ def test_decode_past_the_cache_raises(kv_update, dtype, bound):
     with pytest.raises(ValueError, match="length 4"):
         lm.decode_step(tp, cfg, tst, {"tokens": torch.from_numpy(
             toks[:, 4:5])}, torch.full((2,), 4, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("compute,cache", [("float32", "bfloat16"),
+                                           ("bfloat16", "float32")])
+def test_dus_over_a_cache_of_another_type_raises_as_jax(compute, cache):
+    """``kv_update="dus"`` with a float KV cache whose ``kv_cache_dtype``
+    is not the compute dtype (a bfloat16 cache under f32 compute, the
+    default config's f32 setting): the JAX package's first decode step
+    raises ``TypeError`` (lax.scatter of mixed types), and so does the
+    port's, where it used to run over its promoted cache. Under
+    ``"onehot"`` both run the f32 case (the bf16 one is ROADMAP.md's
+    Queue 3 item on a float32 cache under bf16 compute)."""
+    b, seq = 2, 4
+    for kv_update in ("dus", "onehot")[:2 if compute == "float32" else 1]:
+        jcfg, cfg = _cfgs("smollm-135m", compute_dtype=compute,
+                          kv_cache_dtype=cache, kv_update=kv_update)
+        jp, tp = _weights(jcfg, cfg)
+        tok = _tokens(cfg, b, 1)
+        jst = jlm.decode_state_init(jcfg, b, seq)
+        tst = lm.decode_state_init(cfg, b, seq, device="cpu")
+
+        def jstep():
+            return jlm.decode_step(jp, jcfg, jst, _jb({"tokens": tok}),
+                                   jnp.zeros((b,), jnp.int32))[0]
+
+        def tstep():
+            return lm.decode_step(tp, cfg, tst, _tb({"tokens": tok}),
+                                  torch.zeros((b,), dtype=torch.int32))[0]
+
+        if kv_update == "dus":
+            with pytest.raises(TypeError, match="same dtypes"):
+                jstep()
+            with pytest.raises(TypeError, match="same dtypes"):
+                tstep()
+        else:
+            _close(tstep(), jstep())

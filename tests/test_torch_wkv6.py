@@ -238,3 +238,37 @@ def test_launch_arguments(layout, dtype, misaligned, monkeypatch):
     assert all(st * es % 16 == 0 for st in want)
     assert [len(x) for x in plan["rows"]] == [n // 8] * 8
     assert plan["chunks"][-1] == (64, 77)
+
+
+@pytest.mark.parametrize("layout", ["bhsn", "bshn"])
+def test_card_route_refuses_grad(layout, monkeypatch):
+    """The kernel has no backward: on the card route an input that
+    requires grad raises, naming the ROADMAP item, before any launch (no
+    detached output, no plain version); under ``torch.no_grad`` the same
+    call launches. On the CPU, autograd runs through the plain version."""
+    import types
+
+    from repro_torch.kernels import build
+    lib = _FakeLibrary()
+    monkeypatch.setattr(build, "load", lambda: lib)
+    monkeypatch.setattr(ops, "route", lambda name, *ts: "cuda")
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: types.SimpleNamespace(cuda_stream=0x5EED0))
+    call = ops.wkv6 if layout == "bhsn" else ops.wkv6_bshn
+    r, k, v = (torch.randn(1, 2, 2, 16) for _ in range(3))    # H = S = 2
+    w, u = torch.rand(1, 2, 2, 16), torch.randn(2, 16)
+    launches = ops.LAUNCHES
+    for needs in (w, u, r):
+        needs.requires_grad_(True)
+        with pytest.raises(NotImplementedError,
+                           match="wkv6 backward kernel and rwkv6 training"):
+            call(r, k, v, w, u)
+        needs.requires_grad_(False)
+    assert ops.LAUNCHES == launches and lib.calls == []
+    r.requires_grad_(True)
+    with torch.no_grad():
+        call(r, k, v, w, u)
+    assert ops.LAUNCHES == launches + 1 and len(lib.calls) == 1
+    monkeypatch.setattr(ops, "route", lambda name, *ts: "cpu")
+    call(r, k, v, w, u).sum().backward()
+    assert r.grad is not None and r.grad.abs().sum() > 0
