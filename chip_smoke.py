@@ -15,7 +15,9 @@ Phases, each of which fails the run on error:
            every flash instance, bf16 and f32, failing if one has
            none; ``cellcopy``'s cluster size per shape and its
            shared memory (failing unless ``ops.smem_bytes`` states it);
-           ``wkv6``'s CTAs and dynamic shared memory per instance.
+           ``wkv6``'s CTAs and dynamic shared memory per instance, and
+           the registers and spills of each ``wkv6_bwd`` instance (main
+           and reduce kernels) with its shared memory and workspace.
 2. kernel  each kernel against its plain PyTorch version on the card:
            ``cellcopy`` bit-exact on the copied bytes and the per-cell
            sums (the cell shapes of ``tests/test_kernels.py``,
@@ -36,7 +38,14 @@ Phases, each of which fails the run on error:
            to the output's own size, which at S = 4096 is about that
            3e-2); ``wkv6``
            likewise, within rel < 1e-4, at the edges of its 32-token
-           chunks too, each launch as ``ops.launch_plan`` gives it.
+           chunks too, each launch as ``ops.launch_plan`` gives it;
+           ``wkv6_bwd`` (``WKV6_BWD_CASES``: f32 and bf16, small shapes,
+           chunk edges and rwkv6-3b's launch (1, 40, 4096, 64)) in both
+           layouts against ``wkv6_bwd_ref``, and the ``WKV6`` Function's
+           gradients in the model's layout against autograd through
+           ``wkv6_ref``, each gradient within ``GRAD_TOL`` x its max |g|
+           (1e-4 f32, 2e-2 bf16; the share used is printed), each
+           launch as ``ops.bwd_launch_plan`` gives it.
 3. main    ``run_processes(2, ..., pool_bytes=512 MiB, cell_size=16 KiB,
            device="cuda")``: CUDA tensors of 8 B to 8 MiB cross the pool
            on the eager, staged and posted paths in both directions and
@@ -95,13 +104,17 @@ Phases, each of which fails the run on error:
            forward, torch-op backward) against autograd through
            ``attention_ref`` at smollm-135m's and granite-moe's heads
            and training batch, S = 128 and 4096, bf16 and f32, within
-           ``GRAD_TOL`` x max|g|; (b) smollm-135m at full width in f32:
-           ``loss_fn`` and every leaf's gradient on the card against the
-           CPU route, every layer's wq, wk and wv gradient non-zero;
-           (c) ``run_training`` of smollm-135m (8 x 4096) and
-           granite-moe-1b-a400m (3 x 4096), 6 steps each: finite losses,
-           step 0 near ln(vocab), one flash launch per self-attention
-           layer and forward, peak under 80 GB, tokens/s, a step split
+           ``GRAD_TOL`` x max|g|; (b) smollm-135m, and rwkv6-3b cut to 2
+           layers, at full width in f32: ``loss_fn`` and every leaf's
+           gradient on the card against the CPU route, every layer's
+           wq, wk and wv (wr, wk, wv and u) gradient non-zero, one
+           kernel launch of each kind per layer; (c) ``run_training``
+           of smollm-135m (8 x 4096), granite-moe-1b-a400m (3 x 4096)
+           and rwkv6-3b (1 x 4096, all 32 layers), 6 steps each: finite
+           losses, step 0 near ln(vocab), one flash launch per
+           self-attention layer and one ``wkv6`` forward and one
+           ``wkv6_bwd`` per rwkv6 layer and step, peak under 80 GB,
+           tokens/s, a step split
            into batch generation, forward + backward and optimizer
            (``launch/train.py``'s ``grad_step`` and ``update_step``), and
            the card's busy share from ``torch.profiler`` (device time
@@ -109,22 +122,43 @@ Phases, each of which fails the run on error:
            ``torch.use_deterministic_algorithms(True)``, a run
            interrupted by ``FailureInjector`` and resumed from a
            ``CheckpointManager`` bitwise equal to an uninterrupted one
-           (smollm-135m; granite-moe cut to 2 layers), and the resumed
+           (smollm-135m; granite-moe and rwkv6-3b cut to 2 layers), and
+           the resumed
            params + AdamW state through ``ArenaCheckpoint`` into a
            mapped ``SharedMemoryPool`` and back, bitwise, one
            ``cellcopy`` launch a leaf each way.
-6. report  the ``kernels`` JSON line (times at the main paths' shapes,
+6. cmpi    ``run_processes(4, cmpi_path, ...)``, same pool and cells:
+           data-parallel training over the port's ``Comm`` (pod 2 x
+           data 2, ``distributed.make_cmpi_train_step``), CUDA gradients
+           crossing the pool through ``cellcopy``: (a) smollm-135m in f32
+           at 2 x 256 a rank, ``compression="none"``: every rank's
+           params after one step equal, and within 1e-4 of rank 0's
+           single-card step over the whole batch; (b) ``"int8"``: rank
+           0's synced gradients equal to the parent's emulation of the
+           JAX package's ``psum_int8`` sync from every rank's local
+           gradients, within one quantum, and the params' distance from
+           (a) printed; (c) ``vp_embed``, ``vp_cross_entropy`` and
+           ``vp_greedy_token`` on data 2 x model 2 against the dense
+           computation (1e-5, 1e-4, 0 mismatches) and the cross-entropy's
+           gradients (1e-5 relative); (d) smollm-135m in bf16 at 4096
+           tokens, one sequence a rank, 3 timed steps: tokens/s, the
+           split (batch generation, forward + backward, ``sync_grads``,
+           optimizer), pool bytes a rank copies per part, launches per
+           rank and step (``cellcopy`` > 0 on every rank), peak per
+           process.
+7. report  the ``kernels`` JSON line (times at the main paths' shapes,
            ``cellcopy``'s beside ``Tensor.copy_`` (one at the serving
            tier's 4096 B page), its launches per path, ``flash_attention``
            at every shape phases 4 and 5 launch it at, beside SDPA,
            with its launches per model and training run, ``wkv6``'s in
-           cycles per token, and the
+           cycles per token, ``wkv6_bwd``'s at rwkv6-3b's training launch
+           beside its bound and the plain backward, and the
            f32 flash kernel at the parity prefill's shapes and at the
            long prompt, beside its FMA and split-TF32 bounds),
            one-way latency and bandwidth per path and size, one-sided
            latency and bandwidth per size, the serving tier's QPS and
-           latency, the serving numbers per model, the ``training``
-           line, and the card's name and power limit.
+           latency, the serving numbers per model, the ``training`` and
+           ``cmpi_training`` lines, and the card's name and power limit.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
 or outside a checkout of the repository, it exits non-zero and prints no
@@ -201,8 +235,10 @@ LOGIT_TOL = 1e-3
 # phase 5, training: published configs at train_4k's seq_len 4096, the
 # global batch (256) cut to what one H100 holds (granite-moe at 4 ran
 # out of the 80 GB: 21 GB of f32 params, grads and AdamW state, ~14 GB
-# of activations a sequence); STEPS steps each
-TRAIN = {"smollm-135m": 8, "granite-moe-1b-a400m": 3}
+# of activations a sequence; rwkv6-3b's 3.07 B params take 49 GB of f32
+# params, grads and AdamW state, and its depth stays whole: 13.8 GB at 2
+# layers and 17.6 GB at 4 give ~72 GB at 32); STEPS steps each
+TRAIN = {"smollm-135m": 8, "granite-moe-1b-a400m": 3, "rwkv6-3b": 1}
 TRAIN_STEPS = 6
 # (H, KV, D) of each trained model's self-attention layers
 TRAIN_HEADS = {(9, 3, 64): "smollm-135m", (16, 8, 64): "granite-moe-1b-a400m"}
@@ -216,13 +252,33 @@ GRAD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # leaf's gradient within tol x that leaf's max |g|
 MODEL_GRAD = {"batch": 2, "seq_len": 256, "loss_rtol": 1e-4,
               "grad_tol": 1e-3}
+# the configs of (b) and their cuts: rwkv6-3b at full width, 2 layers
+MODEL_GRAD_CUTS = {"smollm-135m": {}, "rwkv6-3b": {"n_layers": 2}}
 # (d) restart: steps uninterrupted, then a failure at step FAIL_AT and a
 # resume from the checkpoint written at CKPT_EVERY; smollm-135m and
 # granite-moe cut to 2 layers (the MoE scatter), short sequences
 RESTART = {"steps": 4, "fail_at": 3, "ckpt_every": 3, "seq_len": 256,
            "global_batch": 2}
+# phase 6, cMPI data-parallel training: 4 ranks (pod 2 x data 2) on the
+# one card, one process each, through the port's Comm over the mapped
+# pool (POOL_BYTES: a blocking collective hands at most Comm.lease_cap,
+# an eighth of a rank's share of the pool, 16 MiB, to one schedule, so
+# that a rank leases ~60 MiB of the pool at most).
+# (a)/(b) smollm-135m in f32 compute, 2 x 256 a rank, (a) holding every
+# leaf's synced gradient to rank 0's single-card one within tol_grad x
+# that leaf's largest |g|; (c) the
+# vocab-parallel functions on data 2 x model 2 at tests/test_distributed
+# .py's sizes; (d) smollm-135m in bf16 at 4096 tokens, one sequence a rank
+CMPI = {"ranks": 4, "mesh": (2, 2), "axes": ("pod", "data"),
+        "arch": "smollm-135m", "f32_seq": 256, "f32_rows": 2,
+        "seq": LONG_PROMPT, "rows": 1, "steps": 3, "tol_none": 1e-4,
+        "tol_grad": 1e-4,
+        "vp": {"mesh": (2, 2), "axes": ("data", "model"), "batch": 4,
+               "seq": 8, "vocab_size": 64, "vocab_pad_multiple": 4,
+               "tol_embed": 1e-5, "tol_ce": 1e-4, "tol_grad": 1e-5}}
 RESTART_CUTS = {"smollm-135m": {},
-                "granite-moe-1b-a400m": {"n_layers": 2}}
+                "granite-moe-1b-a400m": {"n_layers": 2},
+                "rwkv6-3b": {"n_layers": 2}}
 
 
 def fail(msg: str) -> None:
@@ -1043,6 +1099,18 @@ WKV6_CASES = [
     (1, 40, 4096, 64, "bfloat16"), (2, 4, 1, 64, "bfloat16"),
     (1, 40, 33, 64, "float32"), (1, 40, 4095, 64, "bfloat16"),
     (4, 8, 77, 64, "bfloat16")]
+# the wkv6 backward (``wkv6_bwd``, the WKV6 Function's): (b, h, s, n,
+# dtype of r, k, v): small shapes, the chunk edges (S = 33, 40, 77, 100)
+# and rwkv6-3b's launch shape at train_4k's seq_len; each case in both
+# layouts against ``wkv6_bwd_ref``, and the Function's gradients in the
+# model's layout against autograd through ``wkv6_ref``, each gradient
+# within GRAD_TOL x its max |g|
+WKV6_LAUNCH = (1, 40, LONG_PROMPT, 64)
+WKV6_BWD_CASES = [
+    (2, 2, 64, 16, "float32"), (1, 4, 100, 32, "float32"),
+    (2, 3, 40, 16, "bfloat16"), (1, 1, 33, 8, "float32"),
+    (2, 4, 77, 64, "bfloat16"), (*WKV6_LAUNCH, "float32"),
+    (*WKV6_LAUNCH, "bfloat16")]
 
 
 def _randn(shape, g, dtype="float32"):
@@ -1081,6 +1149,30 @@ def _wkv6_plan(b, h, s, n, dtype) -> dict:
     if rc or list(out) != want:
         fail(f"wkv6 launch of {(b, h, s, n, dtype)}: library {list(out)} "
              f"(rc {rc}), launch_plan {want}")
+    return plan
+
+
+def _wkv6_bwd_plan(b, h, s, n, dtype) -> dict:
+    """The launches the library's ``wkv6_bwd`` makes for the case
+    (``wkv6_bwd_plan``), checked against ``ops.bwd_launch_plan``, whose
+    workspace the wrapper allocates."""
+    import ctypes
+
+    import torch
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels.rwkv6 import ops
+    out = (ctypes.c_int * 10)()
+    dt = getattr(torch, dtype)
+    rc = build.load().wkv6_bwd_plan(ops.DTYPES[dt], b, h, s, n, out)
+    plan = ops.bwd_launch_plan(b, h, s, n, dt)
+    ws = plan["workspace_bytes"]
+    want = [*plan["grid"], plan["threads"], plan["smem_bytes"],
+            plan["reduce_grid"][0], plan["reduce_threads"],
+            plan["du_grid"][0], ws & 0x7FFFFFFF, ws >> 31]
+    if rc or list(out) != want:
+        fail(f"wkv6_bwd launch of {(b, h, s, n, dtype)}: library "
+             f"{list(out)} (rc {rc}), bwd_launch_plan {want}")
     return plan
 
 
@@ -1154,6 +1246,76 @@ def model_kernel_phase(fcheck: FloatCheck, wcheck: FloatCheck) -> None:
     torch.cuda.synchronize()
 
 
+def wkv6_bwd_phase() -> dict:
+    """Phase 2, the wkv6 backward: for each of ``WKV6_BWD_CASES`` the
+    library's launch (``wkv6_bwd_plan``) held to ``ops.bwd_launch_plan``;
+    ``wkv6_bwd`` in both layouts against ``wkv6_bwd_ref`` on the same
+    inputs, each gradient in its input's dtype; the ``WKV6`` Function in
+    the model's BSHN layout (kernel forward, ``wkv6_bwd`` backward)
+    against autograd through ``wkv6_ref``. Every gradient within
+    ``GRAD_TOL`` x its max |g|; returns the share of that bound each
+    comparison used."""
+    import torch
+
+    from repro_torch.kernels.rwkv6 import ops as wk
+    from repro_torch.kernels.rwkv6 import ref as wk_ref
+    g = torch.Generator(device="cuda").manual_seed(14)
+    names = ("dr", "dk", "dv", "dw", "du")
+    cases = []
+    for b, h, s, n, dt in WKV6_BWD_CASES:
+        _wkv6_bwd_plan(b, h, s, n, dt)
+        args = _wkv6_inputs(b, h, s, n, dt, g)
+        do = _randn((b, h, s, n), g)
+        want = wk_ref.wkv6_bwd_ref(*args, do)
+        before = wk.BWD_LAUNCHES
+        got = {"bhsn": wk._launch_bwd(*args, do, heads=1)}
+        t = wk._launch_bwd(*(a.transpose(1, 2).contiguous()
+                             for a in args[:4]), args[4],
+                           do.transpose(1, 2).contiguous(), heads=2)
+        got["bshn"] = (*(a.transpose(1, 2) for a in t[:4]), t[4])
+        leaves = [a.clone().requires_grad_(True) for a in args]
+        out = wk.wkv6_bshn(*(a.transpose(1, 2) for a in leaves[:4]),
+                           leaves[4])
+        if type(out.grad_fn).__name__ != "WKV6Backward":
+            fail(f"wkv6_bwd ({b},{h},{s},{n}) {dt}: the card route did "
+                 "not go through the WKV6 Function")
+        out.backward(do.transpose(1, 2))
+        fn = [a.grad for a in leaves]
+        for a in leaves:
+            a.grad = None
+        wk_ref.wkv6_ref(*leaves).backward(do)
+        auto = [a.grad for a in leaves]
+        if wk.BWD_LAUNCHES != before + 3:
+            fail(f"wkv6_bwd ({b},{h},{s},{n}) {dt}: "
+                 f"{wk.BWD_LAUNCHES - before} backward launches, want 3")
+        what = f"B={b} H={h} S={s} n={n} {dt}"
+        shares, err = {}, 0.0
+        for kind, gs, ws in (("kernel_bhsn", got["bhsn"], want),
+                             ("kernel_bshn", got["bshn"], want),
+                             ("function", fn, auto)):
+            for name, a, w, x in zip(names, gs, ws, args):
+                if a.dtype != x.dtype or a.shape != x.shape:
+                    fail(f"wkv6_bwd {what} {kind}: {name} "
+                         f"{a.dtype} {tuple(a.shape)}, input {x.dtype} "
+                         f"{tuple(x.shape)}")
+                shares[f"{kind}.{name}"] = _grad_share(a, w, GRAD_TOL[dt])
+                err = max(err, float((a.float() - w.float()).abs().max()))
+        worst = max(shares, key=shares.get)
+        if not shares[worst] <= 1:
+            fail(f"wkv6_bwd {what}: {worst} used {shares[worst]:.3g} of "
+                 f"{GRAD_TOL[dt]} x max|g| ({shares})")
+        cases.append({"case": what, "tol": GRAD_TOL[dt],
+                      "max_share_of_tol": shares[worst], "worst": worst,
+                      "max_abs_err": err})
+        del args, do, want, got, t, leaves, out, fn, auto
+    torch.cuda.empty_cache()
+    return {"cases": cases, "max_abs_err": max(c["max_abs_err"]
+                                               for c in cases),
+            "max_share_of_tol": {
+                dt: max(c["max_share_of_tol"] for c in cases
+                        if c["case"].endswith(dt)) for dt in GRAD_TOL}}
+
+
 def _flash_work(b, h, kv, s, d, dtype, causal=True):
     """(flops, bytes) the function needs: 4 d flops per (query, key) pair
     it attends (s(s+1)/2 pairs per head when causal); q, k, v read once
@@ -1170,6 +1332,17 @@ def _wkv6_work(b, h, s, n, dtype):
     es = 2 if dtype == "bfloat16" else 4
     return (b * h * s * (5 * n * n + 4 * n),
             b * h * s * n * (3 * es + 4 + 4) + h * n * 4)
+
+
+def _wkv6_bwd_work(b, h, s, n, dtype):
+    """(flops, bytes) of the backward from the inputs alone: per token
+    and head 3n^2 to recompute the state, 2n^2 each for dr (S do), dk
+    (G v), dv (k^T G) and dw (G * S summed), 3n^2 for G's update, and
+    10n for the u and a_t terms; r, k, v, w and do read once, dr, dk,
+    dv and dw written once, u read and du written once."""
+    es = 2 if dtype == "bfloat16" else 4
+    return (b * h * s * (14 * n * n + 10 * n),
+            b * h * s * n * (6 * es + 4 + 4 + 4) + 2 * h * n * 4)
 
 
 def _bound_ms(flops: float, nbytes: float, dtype: str) -> tuple[float, str]:
@@ -1245,6 +1418,40 @@ def model_kernel_timings() -> tuple[list[dict], list[dict]]:
                     "cycles_per_token_at_max_clock":
                         kern * 1e-3 * clock_hz / s})
     return flash, wkv
+
+
+def wkv6_bwd_timing() -> dict:
+    """``wkv6_bwd`` at rwkv6-3b's training launch (``WKV6_LAUNCH``, bf16
+    r, k, v in the model's BSHN layout) beside its bound and the plain
+    backward's time (``wkv6_bwd_ref``, a Python loop over tokens: timed
+    without the spin, once)."""
+    import torch
+
+    from repro_torch.kernels.rwkv6 import ops as wk
+    from repro_torch.kernels.rwkv6 import ref as wk_ref
+    g = torch.Generator(device="cuda").manual_seed(15)
+    b, h, s, n = WKV6_LAUNCH
+    args = _wkv6_inputs(b, h, s, n, "bfloat16", g)
+    r, k, v, w = (a.transpose(1, 2).contiguous() for a in args[:4])
+    u = args[4]
+    do = _randn((b, s, h, n), g)
+    kern, issued = _time_ms(
+        lambda: wk._launch_bwd(r, k, v, w, u, do, heads=2), 10, 2)
+    plain, _ = _time_ms(lambda: wk_ref.wkv6_bwd_ref(
+        *(a.transpose(1, 2) for a in (r, k, v, w)), u, do.transpose(1, 2)),
+        1, 0, spin=False)
+    flops, nbytes = _wkv6_bwd_work(b, h, s, n, "bfloat16")
+    bound, by = _bound_ms(flops, nbytes, "float32")
+    plan = _wkv6_bwd_plan(b, h, s, n, "bfloat16")
+    gx, gy, gz = plan["grid"]
+    return {"shape": f"B={b} H={h} S={s} n={n} bf16 r,k,v bshn",
+            "ms": kern, "issued_ms": issued, "plain_ms": plain,
+            "library_ms": None, "bound_ms": bound, "bound_by": by,
+            "CTAs": gx * gy * gz, "threads_per_CTA": plan["threads"],
+            "smem_bytes": plan["smem_bytes"],
+            "workspace_bytes": plan["workspace_bytes"],
+            "cycles_per_token_at_max_clock":
+                kern * 1e-3 * sm_clock_max_hz() / s}
 
 
 # ---------------------------------------------------------------------------
@@ -1555,62 +1762,74 @@ def train_grad_phase() -> dict:
                 if c["case"].endswith(dt)) for dt in GRAD_TOL}}
 
 
-def train_model_grad_phase() -> dict:
-    """(b) smollm-135m at full width in f32 compute: ``loss_fn`` and every
-    leaf's gradient on the card (kernel forward, torch-op backward;
-    TF32 off) against the port's CPU route (plain versions) from the
-    same weights and batch; every layer's wq, wk and wv get a non-zero
-    gradient on the card."""
+def train_model_grad_phase(arch: str) -> dict:
+    """(b) ``arch`` at full width in f32 compute (its ``MODEL_GRAD_CUTS``
+    depth): ``loss_fn`` and every leaf's gradient on the card (kernel
+    forwards; the flash kernel's torch-op backward and ``wkv6_bwd``; TF32
+    off) against the port's CPU route (plain versions) from the same
+    weights and batch; one kernel launch of each kind per layer; every
+    layer's mixer projections (wq, wk, wv or wr, wk, wv, and rwkv6's u)
+    get a non-zero gradient on the card."""
     import dataclasses
 
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.rwkv6 import ops as wk
     from repro_torch.models import lm
     from repro_torch.train import data as D
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = dataclasses.replace(get_config("smollm-135m"),
-                              compute_dtype="float32")
+    cut = MODEL_GRAD_CUTS[arch]
+    cfg = dataclasses.replace(get_config(arch), compute_dtype="float32",
+                              **cut)
     batch = D.SyntheticLM(D.DataConfig(
         vocab_size=cfg.vocab_size, seq_len=MODEL_GRAD["seq_len"],
         global_batch=MODEL_GRAD["batch"])).batch(0)
     card = lm.init(cfg, 0, device="cuda")
     cpu = lm._tree_map(lambda t: t.cpu(), card)
-    res = {}
+    want = prefill_launches(cfg)
+    want = {"flash_attention": want["flash_attention"],
+            "wkv6": want["wkv6"], "wkv6_bwd": want["wkv6"]}
+    res = {"arch": arch, "cut": cut or None}
     for name, params in (("card", card), ("cpu", cpu)):
         dev = next(lm.tree_leaves(params)).device
         for t in lm.tree_leaves(params):
             t.requires_grad_(True)
-        before = fa.LAUNCHES
+        before = (fa.LAUNCHES, wk.LAUNCHES, wk.BWD_LAUNCHES)
         t0 = time.perf_counter()
         total, m = lm.loss_fn(params, cfg, {
             k: torch.from_numpy(v).to(dev) for k, v in batch.items()})
         total.backward()
         if name == "card":
             res["card_fwd_bwd_s"] = _sync_s(t0)
-            if fa.LAUNCHES - before != cfg.n_layers:
-                fail(f"train (b): {fa.LAUNCHES - before} flash launches, "
-                     f"want {cfg.n_layers}")
+            got = dict(zip(want, (a - b for a, b in zip(
+                (fa.LAUNCHES, wk.LAUNCHES, wk.BWD_LAUNCHES), before))))
+            if got != want:
+                fail(f"train (b) {arch}: launches {got}, want {want}")
+            res["launches"] = got
         else:
             res["cpu_fwd_bwd_s"] = time.perf_counter() - t0
         res[f"{name}_loss"] = m["loss"].item()
-    for w in ("wq", "wk", "wv"):
-        g = card["blocks"][0]["mixer"][w].grad
+    mixer = card["blocks"][0]["mixer"]
+    names = ("wq", "wk", "wv") if "wq" in mixer else ("wr", "wk", "wv", "u")
+    for w in names:
+        g = mixer[w].grad
         zero = [i for i in range(cfg.n_groups) if not bool(g[i].any())]
         if zero:
-            fail(f"train (b): {w}.grad is zero in layers {zero}")
+            fail(f"train (b) {arch}: {w}.grad is zero in layers {zero}")
     loss_rel = abs(res["card_loss"] - res["cpu_loss"]) / abs(res["cpu_loss"])
     share = 0.0
     for a, b in zip(lm.tree_leaves(card), lm.tree_leaves(cpu)):
         share = max(share, _grad_share(a.grad.cpu(), b.grad,
                                        MODEL_GRAD["grad_tol"]))
     res.update({"loss_rel_diff": loss_rel, "grad_max_share_of_tol": share,
-                **MODEL_GRAD, "every_layer_wq_wk_wv_grad_nonzero": True})
+                **MODEL_GRAD, f"every_layer_{'_'.join(names)}_grad_nonzero":
+                    True})
     if not (loss_rel <= MODEL_GRAD["loss_rtol"] and share <= 1):
-        fail(f"train (b): card against CPU: loss rel diff {loss_rel:.3g} "
-             f"(tol {MODEL_GRAD['loss_rtol']}), gradient {share:.3g} of "
-             f"{MODEL_GRAD['grad_tol']} x max|g|")
+        fail(f"train (b) {arch}: card against CPU: loss rel diff "
+             f"{loss_rel:.3g} (tol {MODEL_GRAD['loss_rtol']}), gradient "
+             f"{share:.3g} of {MODEL_GRAD['grad_tol']} x max|g|")
     del card, cpu
     torch.cuda.empty_cache()
     return res
@@ -1640,16 +1859,19 @@ def train_run(arch: str) -> dict:
     cfg = get_config(arch)
     b = TRAIN[arch]
     shape = dataclasses.replace(SHAPES["train_4k"], global_batch=b)
-    attn = prefill_launches(cfg)["flash_attention"]
+    per_step = prefill_launches(cfg)
+    want = {"flash_attention": per_step["flash_attention"] * TRAIN_STEPS,
+            "wkv6": per_step["wkv6"] * TRAIN_STEPS,
+            "wkv6_bwd": per_step["wkv6"] * TRAIN_STEPS, "cellcopy": 0}
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    cc.LAUNCHES = fa.LAUNCHES = wk.LAUNCHES = 0
+    cc.LAUNCHES = fa.LAUNCHES = wk.LAUNCHES = wk.BWD_LAUNCHES = 0
     t0 = time.perf_counter()
     out = T.run_training(cfg, shape, TRAIN_STEPS, quiet=True,
                          device="cuda")
     run_s = _sync_s(t0)
     launches = {"flash_attention": fa.LAUNCHES, "wkv6": wk.LAUNCHES,
-                "cellcopy": cc.LAUNCHES}
+                "wkv6_bwd": wk.BWD_LAUNCHES, "cellcopy": cc.LAUNCHES}
     hist = out["history"]
     uniform = float(np.log(cfg.vocab_size))
     res = {"arch": arch, "reduced": (
@@ -1657,17 +1879,19 @@ def train_run(arch: str) -> dict:
         "seq_len": shape.seq_len, "global_batch": b, "history": hist,
         "ln_vocab": uniform, "run_s": run_s,
         "tokens_per_s": out["tokens_per_s"], "launches": launches,
-        "want_flash_launches": attn * TRAIN_STEPS,
+        "launches_per_step": {k: v // TRAIN_STEPS
+                              for k, v in launches.items()},
         "peak_GB": torch.cuda.max_memory_allocated() / 1e9}
     if len(hist) != TRAIN_STEPS or not all(map(np.isfinite, hist)):
         fail(f"train (c) {arch}: losses {hist}")
     if not abs(hist[0] - uniform) < 1.0:
         fail(f"train (c) {arch}: step 0's loss {hist[0]:.3f}, not near "
              f"ln(vocab) = {uniform:.3f}")
-    if launches != {"flash_attention": attn * TRAIN_STEPS, "wkv6": 0,
-                    "cellcopy": 0}:
-        fail(f"train (c) {arch}: launches {launches}, want "
-             f"{attn} self-attention layers x {TRAIN_STEPS} forwards")
+    if launches != want:
+        fail(f"train (c) {arch}: launches {launches}, want {want} (one "
+             f"flash launch per self-attention layer and one wkv6 "
+             f"forward and backward per rwkv6 layer, x {TRAIN_STEPS} "
+             "steps)")
 
     params, state = out["params"], out["opt_state"]
     oc = opt.for_model(cfg)
@@ -1821,15 +2045,19 @@ def train_restart_phase() -> dict:
 
 
 def train_phase() -> dict:
-    """Phase 5: (a) the attention gradient, (b) a full-width model's
+    """Phase 5: (a) the attention gradient, (b) full-width models'
     gradients, card against CPU, (c) training at full width, (d) the
     restart and the arena checkpoint."""
     res = {}
-    for name, fn in (("grad", train_grad_phase),
-                     ("model_grad", train_model_grad_phase)):
+    t0 = time.perf_counter()
+    res["grad"] = train_grad_phase()
+    say(f"[train] grad: {json.dumps(res['grad'])} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    res["model_grad"] = {}
+    for arch in MODEL_GRAD_CUTS:
         t0 = time.perf_counter()
-        res[name] = fn()
-        say(f"[train] {name}: {json.dumps(res[name])} "
+        res["model_grad"][arch] = train_model_grad_phase(arch)
+        say(f"[train] model_grad: {json.dumps(res['model_grad'][arch])} "
             f"({time.perf_counter() - t0:.1f} s)")
     for arch in TRAIN:
         t0 = time.perf_counter()
@@ -1841,6 +2069,342 @@ def train_phase() -> dict:
     say(f"[train] restart: {json.dumps(res['restart'])} "
         f"({time.perf_counter() - t0:.1f} s)")
     return res
+
+
+# ---------------------------------------------------------------------------
+# phase 6: cMPI data-parallel training (module level: run_processes spawns)
+# ---------------------------------------------------------------------------
+
+def _cmpi_counts() -> dict:
+    from repro_torch.kernels.cellcopy import ops as cc
+    from repro_torch.kernels.flash_attention import ops as fa
+    return {"cellcopy": cc.LAUNCHES, "flash_attention": fa.LAUNCHES}
+
+
+def _zero_cmpi_counts() -> None:
+    from repro_torch.kernels.cellcopy import ops as cc
+    from repro_torch.kernels.flash_attention import ops as fa
+    cc.LAUNCHES = fa.LAUNCHES = 0
+
+
+def _cmpi_vp(env) -> dict:
+    """(c) vp_embed, vp_cross_entropy and vp_greedy_token on data 2 x
+    model 2 against the dense computation on the rank's rows; and the
+    gradients of the cross-entropy (dx, summed over model, and the
+    table's slice) against dense autograd."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.context import DistContext
+    vp = CMPI["vp"]
+    cfg = dataclasses.replace(
+        get_config(CMPI["arch"]).reduced(), vocab_parallel=True,
+        vocab_size=vp["vocab_size"],
+        vocab_pad_multiple=vp["vocab_pad_multiple"], compute_dtype="float32")
+    dist = DistContext(env.comm, vp["mesh"], vp["axes"])
+    g = torch.Generator().manual_seed(3)
+    V, D, b, s = cfg.padded_vocab, cfg.d_model, vp["batch"], vp["seq"]
+    table = torch.randn(V, D, generator=g).cuda()
+    x = torch.randn(b, s, D, generator=g).cuda()
+    toks = torch.randint(0, cfg.vocab_size, (b, s), generator=g).cuda()
+    local = dist.shard_batch({"x": x, "toks": toks})
+    x, toks = local["x"], local["toks"]
+    logits = (x @ table.T)[..., :cfg.vocab_size]
+    dense_ce = torch.logsumexp(logits, -1) - torch.take_along_dim(
+        logits, toks[..., None], -1)[..., 0]
+    out = {"e_embed": float((dist.vp_embed(table, toks, cfg)
+                             - table[toks]).abs().max()),
+           "e_ce": float((dist.vp_cross_entropy(table, x, toks, cfg)
+                          - dense_ce).abs().max()),
+           "argmax_mismatches": int((dist.vp_greedy_token(
+               table, x[:, 0], cfg) != logits[:, 0].argmax(-1)).sum())}
+    grads = []
+    for fn in (lambda t, xx: dist.vp_cross_entropy(t, xx, toks, cfg),
+               lambda t, xx: torch.logsumexp((xx @ t.T)[
+                   ..., :cfg.vocab_size], -1) - torch.take_along_dim(
+                   (xx @ t.T), toks[..., None], -1)[..., 0]):
+        t, xx = table.clone().requires_grad_(True), \
+            x.clone().requires_grad_(True)
+        fn(t, xx).sum().backward()
+        grads.append((t.grad, xx.grad))
+    shard = V // dist.model_size
+    lo = dist.axis_index("model") * shard
+    (vt, vx), (dt, dx) = grads
+    out["e_grad_x"] = float((vx - dx).abs().max() / dx.abs().max())
+    out["e_grad_table_slice"] = float(
+        (vt[lo:lo + shard] - dt[lo:lo + shard]).abs().max()
+        / dt.abs().max())
+    out["table_grad_outside_slice"] = bool(
+        vt[:lo].any() or vt[lo + shard:].any())
+    return out
+
+
+def cmpi_path(env) -> dict:
+    """Phase 6's rank program (4 ranks, pod 2 x data 2): (a) one cMPI
+    step of smollm-135m in f32 (``compression="none"``), with rank 0's
+    single-card step over the whole batch beside it: its gradients
+    against the synced ones, its params against the step's; (b) the same step
+    under ``"int8"``, every rank's local gradients and rank 0's synced
+    ones returned for the parent's emulation of the JAX package's
+    ``psum_int8``; (c) the vocab-parallel functions; (d) smollm-135m in
+    bf16 at 4096 tokens a rank, ``CMPI["steps"]`` steps timed in parts,
+    the pool bytes the rank copies and its kernel launches, the counts
+    set to 0 just before those steps and read just after them."""
+    import dataclasses
+    import hashlib
+
+    import torch
+
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.distributed.context import DistContext
+    from repro_torch.distributed.schedules import make_cmpi_train_step
+    from repro_torch.launch import train as T
+    from repro_torch.models import lm
+    from repro_torch.train import data as D
+    from repro_torch.train import optimizer as opt
+    torch.backends.cuda.matmul.allow_tf32 = False
+    stats = env.arena.view.stats
+    rep = {"rank": env.rank, "device": str(env.comm.device)}
+    t_all = time.perf_counter()
+    dist = DistContext(env.comm, CMPI["mesh"], CMPI["axes"])
+    rep["coords"], rep["dp_index"] = dist.coords, dist.dp_index
+
+    # (a) and (b): f32 compute, the same params, one step each way
+    cfg = dataclasses.replace(get_config(CMPI["arch"]),
+                              compute_dtype="float32")
+    n = dist.dp_size
+    shape = dataclasses.replace(SHAPES["train_4k"], seq_len=CMPI["f32_seq"],
+                                global_batch=CMPI["f32_rows"] * n)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in D.SyntheticLM(
+        D.for_model(cfg, shape, 0)).batch(0).items()}
+    oc = opt.for_model(cfg)
+    after, synced_none = {}, None
+    for comp in ("none", "int8"):
+        params = lm.init(cfg, 0, device="cuda")
+        state = opt.init(oc, params)
+        step = make_cmpi_train_step(cfg, shape, dist, oc=oc,
+                                    compression=comp)
+        grads, metrics = step.grads(params, batch)
+        if comp == "int8":
+            rep["local_grads"] = [g.cpu().numpy()
+                                  for g in lm.tree_leaves(grads)]
+        synced = step.sync(grads)
+        if comp == "int8" and env.rank == 0:
+            rep["int8_synced"] = [g.cpu().numpy()
+                                  for g in lm.tree_leaves(synced)]
+        if comp == "none":
+            synced_none = list(lm.tree_leaves(synced))
+        m = step.update(params, state, synced, metrics)
+        rep[f"{comp}_loss"] = float(m["loss"])
+        after[comp] = [p.detach() for p in lm.tree_leaves(params)]
+        del params, state, grads, synced
+    rep["digest"] = hashlib.sha256(b"".join(
+        p.cpu().numpy().tobytes()
+        for p in after["none"] + synced_none)).hexdigest()
+    rep["int8_vs_none_max_abs"] = max(float((a - b).abs().max()) for a, b
+                                      in zip(after["int8"], after["none"]))
+    if env.rank == 0:
+        params = lm.init(cfg, 0, device="cuda")
+        state = opt.init(oc, params)
+        for p in lm.tree_leaves(params):
+            p.requires_grad_(True)
+        grads, sm = T.grad_step(params, cfg, batch)
+        # every leaf: the largest |synced - single-card| over tol_grad x
+        # the leaf's largest single-card |g|
+        rep["none_grad_share"] = max(
+            float((a - b).abs().max() / (CMPI["tol_grad"] * b.abs().max()))
+            for a, b in zip(synced_none, lm.tree_leaves(grads)))
+        T.update_step(params, oc, state, grads)
+        rep["single_loss"] = sm["loss"].item()
+        rep["none_vs_single_max_abs"] = max(
+            float((a - b.detach()).abs().max()) for a, b in
+            zip(after["none"], lm.tree_leaves(params)))
+        del params, state, grads
+    del after, synced_none
+    env.comm.barrier()
+
+    # (c) the vocab-parallel functions on data 2 x model 2
+    rep["vp"] = _cmpi_vp(env)
+    torch.cuda.empty_cache()
+
+    # (d) bf16 compute at 4096 tokens a rank
+    cfg = get_config(CMPI["arch"])
+    shape = dataclasses.replace(SHAPES["train_4k"], seq_len=CMPI["seq"],
+                                global_batch=CMPI["rows"] * n)
+    ds = D.SyntheticLM(D.for_model(cfg, shape, 0))
+    oc = opt.for_model(cfg)
+    params = lm.init(cfg, 0, device="cuda")
+    state = opt.init(oc, params)
+    step = make_cmpi_train_step(cfg, shape, dist, oc=oc)
+    torch.cuda.reset_peak_memory_stats()
+    splits, losses = [], []
+    _zero_cmpi_counts()
+    for i in range(CMPI["steps"] + 1):            # step 0 warms up
+        t = {"t0": time.perf_counter()}
+        batch = {k: torch.from_numpy(v).cuda()
+                 for k, v in ds.batch(i).items()}
+        torch.cuda.synchronize()
+        t["gen"] = time.perf_counter()
+        c0, b0 = _cmpi_counts(), stats.copied_bytes
+        grads, metrics = step.grads(params, batch)
+        torch.cuda.synchronize()
+        t["fwd_bwd"] = time.perf_counter()
+        b1 = stats.copied_bytes
+        grads = step.sync(grads)
+        torch.cuda.synchronize()
+        t["sync_grads"] = time.perf_counter()
+        b2 = stats.copied_bytes
+        m = step.update(params, state, grads, metrics)
+        torch.cuda.synchronize()
+        t["opt"] = time.perf_counter()
+        c1, b3 = _cmpi_counts(), stats.copied_bytes
+        keys = list(t)
+        split = {f"{k}_s": t[k] - t[p] for p, k in zip(keys, keys[1:])}
+        split.update(pool_bytes_fwd_bwd=b1 - b0, pool_bytes_sync=b2 - b1,
+                     pool_bytes_opt=b3 - b2,
+                     launches={k: c1[k] - c0[k] for k in c1})
+        splits.append(split)
+        losses.append(float(m["loss"]))
+    rep["d"] = {"losses": losses, "steps": splits[1:],
+                "peak_GB": torch.cuda.max_memory_allocated() / 1e9}
+    rep["launches"] = _cmpi_counts()
+    rep["attn_layers"] = prefill_launches(cfg)["flash_attention"]
+    rep["seconds"] = time.perf_counter() - t_all
+    return rep
+
+
+def emulate_psum_int8_sync(local: list, n_pod: int, n_data: int) -> tuple:
+    """The JAX package's ``sync_grads`` with ``psum_int8`` in one
+    process, from every rank's local gradient leaves (rank r = pod
+    r // n_data, data r % n_data): per leaf, block d of the f32 padded
+    flat gradient summed over a pod's data ranks, each pod's shard
+    int8-encoded with its own scale, the int32 sum of the pods' q
+    rescaled by their largest scale, the blocks concatenated and divided
+    by the dp size. Returns (leaves, per leaf the largest scale, one
+    quantum of the result)."""
+    import torch
+
+    from repro_torch.distributed import compression as C
+    out, quanta = [], []
+    for i in range(len(local[0])):
+        g = [torch.from_numpy(rk[i]).cuda().float().reshape(-1)
+             for rk in local]
+        pad = (-g[0].numel()) % n_data
+        blocks = [torch.cat([x, x.new_zeros(pad)]).reshape(n_data, -1)
+                  for x in g]
+        res, smaxes = [], []
+        for d in range(n_data):
+            q, s = zip(*(C.int8_encode(sum(
+                blocks[p * n_data + e][d] for e in range(n_data)))
+                for p in range(n_pod)))
+            smax = torch.stack(s).amax(0)
+            res.append(sum(x.to(torch.int32) for x in q).float() * smax)
+            smaxes.append(float(smax.max()))
+        full = torch.cat(res)[:g[0].numel()].reshape(local[0][i].shape)
+        out.append((full / (n_pod * n_data)).cpu().numpy())
+        quanta.append(max(smaxes) / (n_pod * n_data))
+    return out, quanta
+
+
+def check_cmpi(ranks: list[dict], cmpi_s: float) -> dict:
+    """Hold phase 6's reports to its gates; returns its summary."""
+    import numpy as np
+    launches = [r["launches"] for r in ranks]
+    say(f"[cmpi] {len(ranks)} ranks on {ranks[0]['device']}: "
+        f"{cmpi_s:.1f} s, launches per rank {launches}")
+    if min(x["cellcopy"] for x in launches) <= 0:
+        fail(f"cmpi: a rank never launched cellcopy: {launches}")
+    if [r["dp_index"] for r in ranks] != list(range(len(ranks))):
+        fail(f"cmpi: dp order {[r['coords'] for r in ranks]}")
+    r0 = ranks[0]
+    # (a)
+    if len({r["digest"] for r in ranks}) != 1:
+        fail("cmpi (a): the ranks' params differ after the step")
+    if not r0["none_grad_share"] <= 1:
+        fail(f"cmpi (a): synced gradients {r0['none_grad_share']:.3g} x "
+             f"{CMPI['tol_grad']} x max|g| from the single-card ones")
+    if not r0["none_vs_single_max_abs"] <= CMPI["tol_none"]:
+        fail(f"cmpi (a): params {r0['none_vs_single_max_abs']:.3g} from "
+             f"the single-card step (bound {CMPI['tol_none']})")
+    # (b)
+    n_pod, n_data = CMPI["mesh"]
+    want, quanta = emulate_psum_int8_sync(
+        [r["local_grads"] for r in ranks], n_pod, n_data)
+    diffs = [float(np.abs(a - b).max()) for a, b in
+             zip(r0["int8_synced"], want)]
+    over = [(i, d, q) for i, (d, q) in enumerate(zip(diffs, quanta))
+            if d > q]
+    mism = sum(int((a != b).sum()) for a, b in zip(r0["int8_synced"],
+                                                    want))
+    if over:
+        fail(f"cmpi (b): int8 sync against the emulated psum_int8: "
+             f"(leaf, max abs diff, one quantum) {over[:3]}")
+    # (c)
+    vp = {k: max(r["vp"][k] for r in ranks) for k in ranks[0]["vp"]}
+    v = CMPI["vp"]
+    if not (vp["e_embed"] < v["tol_embed"] and vp["e_ce"] < v["tol_ce"]
+            and vp["argmax_mismatches"] == 0
+            and vp["e_grad_x"] < v["tol_grad"]
+            and vp["e_grad_table_slice"] < v["tol_grad"]
+            and not vp["table_grad_outside_slice"]):
+        fail(f"cmpi (c): vocab-parallel against dense: {vp}")
+    # (d)
+    steps = [s for r in ranks for s in r["d"]["steps"]]
+    n_tok = CMPI["seq"] * CMPI["rows"] * len(ranks)
+    # a step ends when its slowest rank does
+    step_s = [max(sum(r["d"]["steps"][i][f"{k}_s"]
+                      for k in ("fwd_bwd", "sync_grads", "opt"))
+                  for r in ranks) for i in range(CMPI["steps"])]
+    if not all(np.isfinite(r["d"]["losses"]).all() for r in ranks):
+        fail(f"cmpi (d): losses {[r['d']['losses'] for r in ranks]}")
+    mean = {k: float(np.mean([s[k] for s in steps])) for k in (
+        "gen_s", "fwd_bwd_s", "sync_grads_s", "opt_s", "pool_bytes_sync",
+        "pool_bytes_fwd_bwd", "pool_bytes_opt")}
+    out = {
+        "a": {"grad_share_of_bound": r0["none_grad_share"],
+              "grad_bound": f"{CMPI['tol_grad']} x max|g| a leaf",
+              "none_vs_single_max_abs": r0["none_vs_single_max_abs"],
+              "bound": CMPI["tol_none"], "loss": r0["none_loss"],
+              "single_card_loss": r0["single_loss"],
+              "ranks_bitwise_equal": True},
+        "b": {"int8_vs_emulation_max_abs": max(diffs),
+              "elements_differing": mism,
+              "largest_quantum": max(quanta),
+              "int8_vs_none_params_max_abs": r0["int8_vs_none_max_abs"],
+              "loss": r0["int8_loss"]},
+        "c": vp,
+        "d": {"tokens_per_step": n_tok, "step_s": step_s,
+              "tokens_per_s": n_tok / float(np.median(step_s)),
+              "tokens_per_s_with_batch_gen": n_tok / float(np.median(
+                  [s + mean["gen_s"] for s in step_s])),
+              "mean_split": mean,
+              "sync_share": mean["sync_grads_s"] / (
+                  mean["fwd_bwd_s"] + mean["sync_grads_s"] + mean["opt_s"]),
+              "cellcopy_launches_per_rank_step": [
+                  r["d"]["steps"][-1]["launches"]["cellcopy"]
+                  for r in ranks],
+              "flash_launches_per_rank_step": [
+                  r["d"]["steps"][-1]["launches"]["flash_attention"]
+                  for r in ranks],
+              "peak_GB_per_process": [r["d"]["peak_GB"] for r in ranks],
+              "losses": [r["d"]["losses"] for r in ranks]},
+        "launches": {k: sum(x[k] for x in launches)
+                     for k in launches[0]},
+        "launches_per_rank": launches, "phase_s": cmpi_s}
+    if min(out["d"]["cellcopy_launches_per_rank_step"]) <= 0:
+        fail("cmpi (d): a rank's step launched no cellcopy")
+    per_step = {(r["rank"], s["launches"]["flash_attention"])
+                for r in ranks for s in r["d"]["steps"]}
+    if {f for _, f in per_step} != {r0["attn_layers"]}:
+        fail(f"cmpi (d): flash launches per rank step {sorted(per_step)}, "
+             f"want one per attention layer ({r0['attn_layers']})")
+    if any(x["flash_attention"] != r0["attn_layers"] * (CMPI["steps"] + 1)
+           for x in launches):
+        fail(f"cmpi (d): flash launches {launches} over "
+             f"{CMPI['steps'] + 1} steps of {r0['attn_layers']} layers")
+    return out
 
 
 def _ptxas_kernels(log: str) -> dict:
@@ -1976,6 +2540,17 @@ def kernel_build_report(build) -> dict:
                     "CTAs_at_B1_H40": plan["grid"][0] * plan["grid"][1]}
             report[key] = info
             say(f"[build] {key}: {json.dumps(info)}")
+            plan = wk.bwd_launch_plan(1, 40, LONG_PROMPT, n, dt)
+            for kern in ("wkv6_bwd_main", "wkv6_bwd_reduce"):
+                key = f"{kern}<{str(dt)[6:]},{n}>"
+                info = {**props(f"{kern}I{mangled}Li{n}E")}
+                if kern == "wkv6_bwd_main":
+                    info.update(threads=plan["threads"],
+                                dynamic_smem_bytes=plan["smem_bytes"],
+                                workspace_bytes_at_B1_H40_S4096=plan[
+                                    "workspace_bytes"])
+                report[key] = info
+                say(f"[build] {key}: {json.dumps(info)}")
     return report
 
 
@@ -2163,6 +2738,10 @@ def main() -> None:
                 f"err {k['max_rel_err']:.3g}, largest share of the allclose "
                 f"bound {k['bound_use']:.3g} at {k['worst_case']}")
         say(f"[kernel] model kernels {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        wkv6_bwd = wkv6_bwd_phase()
+        say(f"[kernel] wkv6_bwd: {json.dumps(wkv6_bwd)} "
+            f"({time.perf_counter() - t0:.1f} s)")
 
         # 3. the message plane: counts to 0 just before, read just after
         ops.LAUNCHES = 0
@@ -2215,17 +2794,33 @@ def main() -> None:
     training = train_phase()
     say(f"[train] phase {time.perf_counter() - t0:.1f} s")
 
-    # 6. report
+    # 6. cMPI data-parallel training: each rank's counts start at 0 in its
+    # own process and are read at its end; the parent launches nothing
+    torch.cuda.empty_cache()
+    ops.LAUNCHES = 0
+    t0 = time.perf_counter()
+    cranks = run_processes(CMPI["ranks"], cmpi_path, pool_bytes=POOL_BYTES,
+                           cell_size=CELL, device="cuda", timeout=900)
+    cmpi_s = time.perf_counter() - t0
+    if ops.LAUNCHES:
+        fail("the parent launched kernels during the cmpi phase")
+    cmpi = check_cmpi(cranks, cmpi_s)
+    del cranks
+    say(f"[cmpi] {json.dumps(cmpi)}")
+
+    # 7. report
     for r in rows:
         say(f"[time] {json.dumps(r)}")
     flash_rows, wkv_rows = model_kernel_timings()
-    for r in flash_rows + wkv_rows:
+    bwd_row = wkv6_bwd_timing()
+    for r in flash_rows + wkv_rows + [bwd_row]:
         say(f"[time] {json.dumps(r)}")
     head = rows[0]
     by_path = {"message_plane": sum(launches),
                "window": sum(win_launches), "serve": sum(serve_launches),
                "train_arena_checkpoint":
-                   training["restart"]["arena"]["cellcopy_launches"]}
+                   training["restart"]["arena"]["cellcopy_launches"],
+               "cmpi_train": cmpi["launches"]["cellcopy"]}
     entries = [{
         "name": "cellcopy", "route": "cuda",
         "source": "src/repro_torch/csrc/cellcopy.cu",
@@ -2252,6 +2847,9 @@ def main() -> None:
                     if m["launches"][name]}
         by_model.update({f"{a} (train)": training[a]["launches"][name]
                          for a in TRAIN if training[a]["launches"][name]})
+        if name == "flash_attention":
+            by_model[f"{CMPI['arch']} (cmpi, {CMPI['ranks']} ranks)"] = \
+                cmpi["launches"][name]
         entries.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{src}", "replaces": replaces,
@@ -2266,7 +2864,21 @@ def main() -> None:
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"], "shapes": rows_,
             "build": flash_build if name == "flash_attention" else {
-                k: v for k, v in kernel_build.items() if "wkv6" in k}})
+                k: v for k, v in kernel_build.items() if "wkv6_fwd" in k}})
+    entries.append({
+        "name": "wkv6_bwd", "route": "cuda",
+        "source": "src/repro_torch/csrc/wkv6.cu",
+        "replaces": "src/repro/kernels/rwkv6/kernel.py:78",
+        "launches": training["rwkv6-3b"]["launches"]["wkv6_bwd"],
+        "launches_by_model": {"rwkv6-3b (train)": training[
+            "rwkv6-3b"]["launches"]["wkv6_bwd"]},
+        "mismatches": 0, "max_abs_err": wkv6_bwd["max_abs_err"],
+        "max_share_of_tol": wkv6_bwd["max_share_of_tol"],
+        "shape": bwd_row["shape"], "ms": bwd_row["ms"],
+        "plain_ms": bwd_row["plain_ms"], "bound_ms": bwd_row["bound_ms"],
+        "bound_by": bwd_row["bound_by"], "library_ms": None,
+        "shapes": [bwd_row],
+        "build": {k: v for k, v in kernel_build.items() if "bwd" in k}})
     say(json.dumps({"one_way_latency_bandwidth": lat}))
     say(json.dumps({"one_sided_latency_bandwidth": one_sided}))
     say(json.dumps({"serve_tier": serve_tier}))
@@ -2276,6 +2888,7 @@ def main() -> None:
         for a, m in models.items()}}))
     say(json.dumps({"training": {k: training[k] for k in (
         "grad", "model_grad", *TRAIN, "restart")}}))
+    say(json.dumps({"cmpi_training": cmpi}))
     say(f"[done] {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": entries}))
     say(nvidia_smi())

@@ -630,6 +630,9 @@ class Comm(Communicator):
         # ``retune()`` may re-derive the eager threshold from a fresh
         # profile only when the caller did not pin one explicitly
         self._eager_pinned = not (auto or eager_threshold is None)
+        # the ranks that lease round buffers from this arena's pool: the
+        # world's size, handed down to split()/dup() children
+        self._arena_ranks = (_inherit or {}).get("arena_ranks", size)
         if _inherit is not None:
             # sub-communicators never re-probe or re-agree: the parent
             # already measured (or loaded) the crossover and agreed the
@@ -790,7 +793,8 @@ class Comm(Communicator):
                 "chunk_base": self._chunk_base,
                 "tuned": self._tuned,
                 "tuning_reason": getattr(self, "tuning_status",
-                                         {}).get("reason")}
+                                         {}).get("reason"),
+                "arena_ranks": self._arena_ranks}
 
     @property
     def _hier_ratio(self) -> Optional[float]:
@@ -1073,6 +1077,26 @@ class Comm(Communicator):
         return self._resident and self.size > 1 \
             and nbytes > self.eager_threshold
 
+    @property
+    def lease_cap(self) -> int:
+        """Payload bytes that one blocking ``allreduce``,
+        ``reduce_scatter`` or ``allgather`` hands to one schedule on the
+        pool-resident path: an eighth of a rank's share of the pool.
+        Every rank of the arena leases its round buffers from that one
+        pool, each communicator keeps slot sets of its own, and a set
+        holds about twice its payload rounded up to a power of two. A
+        larger payload runs as pieces of at most this size, one after
+        another, with the same result layout."""
+        return max(1 << 16, self.arena.pool.size // (8 * self._arena_ranks))
+
+    def _piece_elems(self, arr: torch.Tensor, nbytes: int) -> int | None:
+        """Elements of ``arr`` a piece holds where a payload of
+        ``nbytes`` would lease more than ``lease_cap`` of the pool;
+        None where it runs whole."""
+        if not (self._use_resident(nbytes) and nbytes > self.lease_cap):
+            return None
+        return max(1, self.lease_cap // arr.element_size())
+
     # ------------------------------------------------------------------
     # method collectives: blocking = i*(...).wait() over the SAME
     # compiled schedules (core/sched.py) the non-blocking forms use
@@ -1127,6 +1151,13 @@ class Comm(Communicator):
         arr = _coll.as_tensor(arr)
         if self.size == 1:
             return arr.clone()
+        piece = self._piece_elems(arr, _coll.nbytes(arr))
+        if piece is not None:
+            flat = arr.reshape(-1)
+            return torch.cat([
+                self.allreduce(flat[a:a + piece], op, algo, group_size,
+                               chunk_bytes)
+                for a in range(0, flat.numel(), piece)]).reshape(arr.shape)
         if algo == "hier" or (algo == "auto" and group_size is not None):
             # an explicit grouping is a hier request: honoring it under
             # "auto" matches the pre-fused behavior, where auto-selected
@@ -1203,9 +1234,22 @@ class Comm(Communicator):
     def reduce_scatter(self, arr, op=torch.add,
                        chunk_bytes=None) -> torch.Tensor:
         """Ring reduce-scatter; returns this rank's reduced shard (chunk
-        ``(rank+1) % size`` of the zero-padded flat payload)."""
-        return self.ireduce_scatter(arr, op,
-                                    chunk_bytes=chunk_bytes).wait()
+        ``(rank+1) % size`` of the zero-padded flat payload). Above
+        ``lease_cap`` the (size, chunk) rows run in column pieces."""
+        arr = _coll.as_tensor(arr)
+        piece = self._piece_elems(arr, _coll.nbytes(arr))
+        if piece is None:
+            return self.ireduce_scatter(arr, op,
+                                        chunk_bytes=chunk_bytes).wait()
+        n, flat = self.size, arr.reshape(-1)
+        per = -(-flat.numel() // n)
+        rows = torch.cat([flat, flat.new_zeros(n * per - flat.numel())]
+                         ).reshape(n, per)
+        cols = max(1, piece // n)
+        return torch.cat([
+            self.ireduce_scatter(rows[:, a:a + cols].contiguous(), op,
+                                 chunk_bytes=chunk_bytes).wait()
+            for a in range(0, per, cols)])
 
     def ireduce_scatter(self, arr, op=torch.add,
                         chunk_bytes=None) -> CollRequest:
@@ -1219,9 +1263,22 @@ class Comm(Communicator):
                   chunk_bytes=None) -> torch.Tensor:
         """All-gather; returns the flat concatenation in rank order.
         ``algo``: ring | bruck | auto (ring for few ranks, Bruck's
-        ceil(log2 n) rounds beyond that)."""
-        return self.iallgather(shard, algo,
-                               chunk_bytes=chunk_bytes).wait()
+        ceil(log2 n) rounds beyond that). Above ``lease_cap`` the shard
+        runs in pieces, each gathered into its columns of the (size,
+        shard) result."""
+        shard = _coll.as_tensor(shard)
+        piece = self._piece_elems(shard, _coll.nbytes(shard) * self.size)
+        if piece is None:
+            return self.iallgather(shard, algo,
+                                   chunk_bytes=chunk_bytes).wait()
+        flat, n = shard.reshape(-1), self.size
+        out = flat.new_empty((n, flat.numel()))
+        cols = max(1, piece // n)
+        for a in range(0, flat.numel(), cols):
+            got = self.iallgather(flat[a:a + cols].contiguous(), algo,
+                                  chunk_bytes=chunk_bytes).wait()
+            out[:, a:a + cols] = got.reshape(n, -1)
+        return out.reshape(-1)
 
     def iallgather(self, shard, algo: str = "auto",
                    chunk_bytes=None) -> CollRequest:

@@ -346,6 +346,454 @@ int smem_by_size(int N) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// The backward: wkv6_bwd. The TPU package has no Pallas backward (it
+// differentiates the jnp oracle with lax.scan); this is the gradient of
+// the forward above, for training on the card. With S_t the state after
+// token t (S_-1 = 0), G_t = dL/dS_t (G_{S-1} = 0), do_t = dL/do_t and
+// a_t = sum_m v_t[m] do_t[m], going backwards over t:
+//
+//   dr_t[n] = sum_m S_{t-1}[n][m] do_t[m]          + u[n] k_t[n] a_t
+//   dk_t[n] = sum_m G_t[n][m] v_t[m]               + r_t[n] u[n] a_t
+//   dv_t[m] = sum_n (r_t[n] u[n] k_t[n]) do_t[m] + k_t[n] G_t[n][m]
+//   dw_t[n] = sum_m G_t[n][m] S_{t-1}[n][m]
+//   du[n]   = sum_{b,t} r_t[n] k_t[n] a_t
+//   G_{t-1}[n][m] = w_t[n] G_t[n][m] + r_t[n] do_t[m]
+//
+// all in IEEE f32. Bound: like the forward, the chain of S tokens; the
+// backward walks it three times (states forward, then a chunk's states
+// again and the reverse walk), with ~3x the forward's work per token.
+//
+// Design: three kernels on one stream, no atomics, every sum in a fixed
+// order (a restart under deterministic algorithms is bitwise):
+//  1. wkv6_bwd_main, the forward's grid (N / kCols column groups, H, B) of
+//     one warp and its thread layout (a thread: kColsPerThread columns x
+//     N / kRowGroups rows of S, and of G, in registers). The columns m of
+//     S and of G are independent, so each CTA walks its own columns:
+//     first forward over the whole sequence, writing the state at each
+//     chunk's start to a workspace (its own slice; it reads it back
+//     itself); then over the chunks in reverse: the chunk's start state
+//     from the workspace, the states before each of its tokens into
+//     shared memory, and the reverse walk over them with G in registers.
+//     dv needs only the CTA's columns: the 8 row groups' partials are
+//     added with a xor butterfly over the lanes and stored. dr, dk and dw
+//     sum over all columns: a CTA adds its 4 column pairs (xor 8, 16) and
+//     stores the sum over its columns as one partial per column group
+//     (without the u a_t terms, which need all of a_t). Inputs arrive a
+//     chunk at a time by cp.async into two shared buffers, as in the
+//     forward.
+//  2. wkv6_bwd_reduce, grid (chunks, H, B) of N threads: a_t of each
+//     token from v and do (a sum over m in order), then dr, dk and dw as
+//     the column groups' partials added in order g = 0, 1, ... plus the
+//     u a_t terms, and each thread's partial of du over the chunk.
+//  3. wkv6_bwd_du, grid H of N threads: du as the sum of those partials
+//     in (b, chunk) order.
+
+// One chunk buffer of the backward in shared memory, in bytes: r, k, w of
+// kChunk tokens (all N rows), v and do of kChunk tokens (this CTA's kCols
+// columns; do in f32).
+template <typename T, int N>
+struct BStage {
+  static constexpr int kR = 0;
+  static constexpr int kK = kR + kChunk * N * (int)sizeof(T);
+  static constexpr int kW = kK + kChunk * N * (int)sizeof(T);
+  static constexpr int kV = kW + kChunk * N * 4;
+  static constexpr int kD = kV + kChunk * kCols * (int)sizeof(T);
+  static constexpr int kBytes = kD + kChunk * kCols * 4;
+};
+
+// two chunk buffers, then the states before each token of a chunk: kChunk
+// x (N x kCols) f32, each token's as [column][row][thread] of the
+// threads' slices
+template <typename T, int N>
+constexpr int bwd_smem_bytes() {
+  return 2 * BStage<T, N>::kBytes + kChunk * N * kCols * 4;
+}
+
+// the workspace in floats: the chunk start states (B, H, G, chunks, N x
+// kCols), the partials of dr, dk, dw (3, G, B, H, S, N), and the partials
+// of du (B, chunks, H, N)
+__host__ __device__ inline long long bwd_ckpt_floats(int B, int H, int S,
+                                                     int N) {
+  const int nch = (S + kChunk - 1) / kChunk;
+  return (long long)B * H * (N / kCols) * nch * kCols * N;
+}
+__host__ __device__ inline long long bwd_part_floats(int B, int H, int S,
+                                                     int N) {
+  return 3LL * (N / kCols) * B * H * S * N;
+}
+__host__ __device__ inline long long bwd_du_floats(int B, int H, int S,
+                                                   int N) {
+  const int nch = (S + kChunk - 1) / kChunk;
+  return (long long)B * nch * H * N;
+}
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);    // round to nearest even, as torch's .to
+}
+
+// Copy tokens [t0, t0 + nt) of r, k, w (whole rows) and of v and do
+// (columns [j0, j0 + kCols)) into the backward's stage at `buf`.
+template <typename T, int N>
+__device__ __forceinline__ void bstage_in(
+    uint8_t* buf, const T* r, const T* k, const T* v, const float* w,
+    const float* dout, long long in0, long long is, int j0, int t0, int nt,
+    int tid) {
+  using St = BStage<T, N>;
+  constexpr int kRow = N * (int)sizeof(T) / 16;
+  constexpr int kWRow = N * 4 / 16;
+  constexpr int kVRow = kCols * (int)sizeof(T) / 16;
+  constexpr int kDRow = kCols * 4 / 16;
+  for (int p = tid; p < nt * kRow; p += kThreads) {
+    const int tt = p / kRow, c = p % kRow;
+    const long long g = in0 + (long long)(t0 + tt) * is;
+    cp_async16(buf + St::kR + tt * N * sizeof(T) + 16 * c,
+               reinterpret_cast<const uint8_t*>(r + g) + 16 * c);
+    cp_async16(buf + St::kK + tt * N * sizeof(T) + 16 * c,
+               reinterpret_cast<const uint8_t*>(k + g) + 16 * c);
+  }
+  for (int p = tid; p < nt * kWRow; p += kThreads) {
+    const int tt = p / kWRow, c = p % kWRow;
+    const long long g = in0 + (long long)(t0 + tt) * is;
+    cp_async16(buf + St::kW + tt * N * 4 + 16 * c,
+               reinterpret_cast<const uint8_t*>(w + g) + 16 * c);
+  }
+  for (int p = tid; p < nt * kVRow; p += kThreads) {
+    const int tt = p / kVRow, c = p % kVRow;
+    const long long g = in0 + (long long)(t0 + tt) * is + j0;
+    cp_async16(buf + St::kV + tt * kCols * sizeof(T) + 16 * c,
+               reinterpret_cast<const uint8_t*>(v + g) + 16 * c);
+  }
+  for (int p = tid; p < nt * kDRow; p += kThreads) {
+    const int tt = p / kDRow, c = p % kDRow;
+    const long long g = in0 + (long long)(t0 + tt) * is + j0;
+    cp_async16(buf + St::kD + tt * kCols * 4 + 16 * c,
+               reinterpret_cast<const uint8_t*>(dout + g) + 16 * c);
+  }
+  cp_async_commit();
+}
+
+template <typename T, int N>
+__global__ void __launch_bounds__(kThreads)
+wkv6_bwd_main(const T* __restrict__ r, const T* __restrict__ k,
+              const T* __restrict__ v, const float* __restrict__ w,
+              const float* __restrict__ u, const float* __restrict__ dout,
+              T* __restrict__ dv, float* __restrict__ ckpt,
+              float* __restrict__ part, int B, int H, int S, long long ib,
+              long long ih, long long is) {
+  constexpr int P = N / kRowGroups;            // rows per thread
+  constexpr int Q = kColsPerThread;
+  constexpr int G = N / kCols;                 // column groups
+  constexpr int kSlice = P * Q * kThreads;     // = N x kCols floats
+  static_assert(Q == 2, "a thread's columns are read as one pair");
+  using St = BStage<T, N>;
+  extern __shared__ __align__(16) uint8_t smem[];
+  float* states = reinterpret_cast<float*>(smem + 2 * St::kBytes);
+  const int tid = threadIdx.x;
+  const int pair = tid / kRowGroups;           // column pair: lanes 8 apart
+  const int col = pair * Q;                    // first column in the CTA
+  const int rg = tid % kRowGroups;             // row group: rows rg*P + q
+  const int g = blockIdx.x;
+  const int j0 = g * kCols;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const long long in0 = b * ib + h * ih;
+  const int nch = (S + kChunk - 1) / kChunk;
+  float* my_ckpt =
+      ckpt + ((((long long)b * H + h) * G + g) * nch) * kSlice + tid;
+  const long long plane = (long long)G * B * H * S * N;
+  // this CTA's partials of dr (plane 0), dk (1) and dw (2) at token t,
+  // row n: part[q * plane + (((g * B + b) * H + h) * S + t) * N + n]
+  float* my_part = part + (((long long)g * B + b) * H + h) * S * N;
+
+  float uu[P], st[Q][P], gr[Q][P];
+#pragma unroll
+  for (int q = 0; q < P; ++q) {
+    uu[q] = u[h * N + rg * P + q];
+#pragma unroll
+    for (int e = 0; e < Q; ++e) st[e][q] = gr[e][q] = 0.f;
+  }
+
+  // 2 nch steps: chunks 0 .. nch-1 forward, then nch-1 .. 0 in reverse
+  const int steps = 2 * nch;
+  auto chunk_of = [nch](int i) { return i < nch ? i : 2 * nch - 1 - i; };
+  bstage_in<T, N>(smem, r, k, v, w, dout, in0, is, j0, 0, min(kChunk, S),
+                  tid);
+  for (int i = 0; i < steps; ++i) {
+    const uint8_t* buf = smem + (i & 1) * St::kBytes;
+    const int c = chunk_of(i);
+    const int t0 = c * kChunk;
+    const int nt = min(kChunk, S - t0);
+    cp_async_wait_all();
+    // step i's chunk is in `buf` for every thread, and every thread is
+    // done with step i - 1's buffer, which the next copy overwrites
+    __syncthreads();
+    if (i + 1 < steps) {
+      const int cn = chunk_of(i + 1);
+      bstage_in<T, N>(smem + ((i + 1) & 1) * St::kBytes, r, k, v, w, dout,
+                      in0, is, j0, cn * kChunk,
+                      min(kChunk, S - cn * kChunk), tid);
+    }
+    const T* sr = reinterpret_cast<const T*>(buf + St::kR) + rg * P;
+    const T* sk = reinterpret_cast<const T*>(buf + St::kK) + rg * P;
+    const float* sw = reinterpret_cast<const float*>(buf + St::kW) + rg * P;
+    const T* sv = reinterpret_cast<const T*>(buf + St::kV) + col;
+    const float* sd = reinterpret_cast<const float*>(buf + St::kD) + col;
+    float* ck = my_ckpt + (long long)c * kSlice;
+    if (i < nch) {
+      // forward: the state before chunk c, then through its tokens (the
+      // last chunk's end state is never read)
+#pragma unroll
+      for (int e = 0; e < Q; ++e)
+#pragma unroll
+        for (int q = 0; q < P; ++q)
+          ck[(e * P + q) * kThreads] = st[e][q];
+      if (c + 1 == nch) continue;
+      for (int tt = 0; tt < nt; ++tt) {
+        float kk[P], ww[P], vv[Q];
+        load_rows<P>(sk + tt * N, kk);
+        load_rows<P>(sw + tt * N, ww);
+        load_rows<Q>(sv + tt * kCols, vv);
+#pragma unroll
+        for (int e = 0; e < Q; ++e)
+#pragma unroll
+          for (int q = 0; q < P; ++q)
+            st[e][q] = fmaf(st[e][q], ww[q], kk[q] * vv[e]);
+      }
+      continue;
+    }
+    // reverse over chunk c: the states before each of its tokens
+#pragma unroll
+    for (int e = 0; e < Q; ++e)
+#pragma unroll
+      for (int q = 0; q < P; ++q) st[e][q] = ck[(e * P + q) * kThreads];
+    for (int tt = 0; tt < nt; ++tt) {
+      float kk[P], ww[P], vv[Q];
+      load_rows<P>(sk + tt * N, kk);
+      load_rows<P>(sw + tt * N, ww);
+      load_rows<Q>(sv + tt * kCols, vv);
+      float* sp = states + tt * kSlice + tid;
+#pragma unroll
+      for (int e = 0; e < Q; ++e)
+#pragma unroll
+        for (int q = 0; q < P; ++q) {
+          sp[(e * P + q) * kThreads] = st[e][q];
+          st[e][q] = fmaf(st[e][q], ww[q], kk[q] * vv[e]);
+        }
+    }
+    // (each thread reads back only the slots it wrote: no barrier)
+    for (int tt = nt - 1; tt >= 0; --tt) {
+      const long long t = t0 + tt;
+      float rr[P], kk[P], ww[P], vv[Q], dd[Q];
+      load_rows<P>(sr + tt * N, rr);
+      load_rows<P>(sk + tt * N, kk);
+      load_rows<P>(sw + tt * N, ww);
+      load_rows<Q>(sv + tt * kCols, vv);
+      load_rows<Q>(sd + tt * kCols, dd);
+      const float* sp = states + tt * kSlice + tid;
+      float ruk = 0.f;                         // this thread's rows
+#pragma unroll
+      for (int q = 0; q < P; ++q) ruk = fmaf(rr[q] * uu[q], kk[q], ruk);
+      float pr[P], pk[P], pw[P], pv[Q];
+#pragma unroll
+      for (int q = 0; q < P; ++q) pr[q] = pk[q] = pw[q] = 0.f;
+#pragma unroll
+      for (int e = 0; e < Q; ++e) {
+        pv[e] = ruk * dd[e];
+#pragma unroll
+        for (int q = 0; q < P; ++q) {
+          const float sprev = sp[(e * P + q) * kThreads];
+          const float gq = gr[e][q];
+          pr[q] = fmaf(sprev, dd[e], pr[q]);
+          pk[q] = fmaf(gq, vv[e], pk[q]);
+          pw[q] = fmaf(gq, sprev, pw[q]);
+          pv[e] = fmaf(kk[q], gq, pv[e]);
+          gr[e][q] = fmaf(ww[q], gq, rr[q] * dd[e]);
+        }
+      }
+      // dv: the 8 row groups of a column are lanes pair*8 .. pair*8 + 7
+#pragma unroll
+      for (int e = 0; e < Q; ++e)
+#pragma unroll
+        for (int off = 1; off < kRowGroups; off <<= 1)
+          pv[e] += __shfl_xor_sync(0xffffffffu, pv[e], off);
+      // dr, dk, dw over the CTA's columns: the pairs are lanes 8 apart
+#pragma unroll
+      for (int q = 0; q < P; ++q) {
+#pragma unroll
+        for (int off = kRowGroups; off < kThreads; off <<= 1) {
+          pr[q] += __shfl_xor_sync(0xffffffffu, pr[q], off);
+          pk[q] += __shfl_xor_sync(0xffffffffu, pk[q], off);
+          pw[q] += __shfl_xor_sync(0xffffffffu, pw[q], off);
+        }
+      }
+      if (rg == 0) {
+        T* dvp = dv + in0 + t * is + j0 + col;
+#pragma unroll
+        for (int e = 0; e < Q; ++e) dvp[e] = from_f32<T>(pv[e]);
+      }
+      // pair 0 stores dr's partial, 1 dk's, 2 dw's (each array indexed
+      // by constants only, so that it stays in registers)
+      float* dst = my_part + pair * plane + t * N + rg * P;
+      if (pair == 0) {
+#pragma unroll
+        for (int q = 0; q < P; ++q) dst[q] = pr[q];
+      } else if (pair == 1) {
+#pragma unroll
+        for (int q = 0; q < P; ++q) dst[q] = pk[q];
+      } else if (pair == 2) {
+#pragma unroll
+        for (int q = 0; q < P; ++q) dst[q] = pw[q];
+      }
+    }
+  }
+}
+
+template <typename T, int N>
+__global__ void __launch_bounds__(N)
+wkv6_bwd_reduce(const T* __restrict__ r, const T* __restrict__ k,
+                const T* __restrict__ v, const float* __restrict__ u,
+                const float* __restrict__ dout,
+                const float* __restrict__ part, T* __restrict__ dr,
+                T* __restrict__ dk, float* __restrict__ dw,
+                float* __restrict__ du_part, int B, int H, int S,
+                long long ib, long long ih, long long is) {
+  constexpr int G = N / kCols;
+  __shared__ float vd[kChunk][N];
+  __shared__ float a[kChunk];
+  const int n = threadIdx.x;
+  const int c = blockIdx.x;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int nch = gridDim.x;
+  const int t0 = c * kChunk;
+  const int nt = min(kChunk, S - t0);
+  const long long in0 = b * ib + h * ih + n;
+  for (int tt = 0; tt < nt; ++tt) {
+    const long long gi = in0 + (t0 + tt) * is;
+    vd[tt][n] = to_f32(v[gi]) * dout[gi];
+  }
+  __syncthreads();
+  for (int tt = n; tt < nt; tt += N) {
+    float s = 0.f;
+#pragma unroll 8
+    for (int m = 0; m < N; ++m) s += vd[tt][m];
+    a[tt] = s;
+  }
+  __syncthreads();
+  const float un = u[h * N + n];
+  const long long plane = (long long)G * B * H * S * N;
+  const long long gstride = (long long)B * H * S * N;
+  float acc = 0.f;
+  for (int tt = 0; tt < nt; ++tt) {
+    const long long t = t0 + tt;
+    const long long gi = in0 + t * is;
+    const long long pi = (((long long)b * H + h) * S + t) * N + n;
+    const float rn = to_f32(r[gi]), kn = to_f32(k[gi]), at = a[tt];
+    float sr = 0.f, sk = 0.f, sw = 0.f;
+#pragma unroll
+    for (int gg = 0; gg < G; ++gg) {
+      sr += part[pi + gg * gstride];
+      sk += part[plane + pi + gg * gstride];
+      sw += part[2 * plane + pi + gg * gstride];
+    }
+    dr[gi] = from_f32<T>(fmaf(un * kn, at, sr));
+    dk[gi] = from_f32<T>(fmaf(rn * un, at, sk));
+    dw[gi] = sw;
+    acc = fmaf(rn * kn, at, acc);
+  }
+  du_part[(((long long)b * nch + c) * H + h) * N + n] = acc;
+}
+
+template <int N>
+__global__ void __launch_bounds__(N)
+wkv6_bwd_du(const float* __restrict__ du_part, float* __restrict__ du,
+            int B, int H, int nch) {
+  const int h = blockIdx.x;
+  const int n = threadIdx.x;
+  float s = 0.f;
+  for (int bc = 0; bc < B * nch; ++bc)
+    s += du_part[((long long)bc * H + h) * N + n];
+  du[h * N + n] = s;
+}
+
+template <typename T, int N>
+cudaError_t launch_bwd(const void* r, const void* k, const void* v,
+                       const void* w, const void* u, const void* dout,
+                       void* dr, void* dk, void* dv, void* dw, void* du,
+                       void* ws, int B, int H, int S, long long ib,
+                       long long ih, long long is, cudaStream_t stream) {
+  constexpr int smem = bwd_smem_bytes<T, N>();
+  cudaError_t e = cudaFuncSetAttribute(
+      wkv6_bwd_main<T, N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (e != cudaSuccess) return e;
+  const int nch = (S + kChunk - 1) / kChunk;
+  float* ckpt = static_cast<float*>(ws);
+  float* part = ckpt + bwd_ckpt_floats(B, H, S, N);
+  float* du_part = part + bwd_part_floats(B, H, S, N);
+  const T* rt = static_cast<const T*>(r);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  const float* ut = static_cast<const float*>(u);
+  const float* dt = static_cast<const float*>(dout);
+  wkv6_bwd_main<T, N><<<dim3(N / kCols, H, B), kThreads, smem, stream>>>(
+      rt, kt, vt, static_cast<const float*>(w), ut, dt, static_cast<T*>(dv),
+      ckpt, part, B, H, S, ib, ih, is);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  wkv6_bwd_reduce<T, N><<<dim3(nch, H, B), N, 0, stream>>>(
+      rt, kt, vt, ut, dt, part, static_cast<T*>(dr), static_cast<T*>(dk),
+      static_cast<float*>(dw), du_part, B, H, S, ib, ih, is);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  wkv6_bwd_du<N><<<H, N, 0, stream>>>(du_part, static_cast<float*>(du), B,
+                                      H, nch);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t bwd_by_size(int N, const void* r, const void* k, const void* v,
+                        const void* w, const void* u, const void* dout,
+                        void* dr, void* dk, void* dv, void* dw, void* du,
+                        void* ws, int B, int H, int S, long long ib,
+                        long long ih, long long is, cudaStream_t st) {
+  switch (N) {
+    case 8:
+      return launch_bwd<T, 8>(r, k, v, w, u, dout, dr, dk, dv, dw, du, ws,
+                              B, H, S, ib, ih, is, st);
+    case 16:
+      return launch_bwd<T, 16>(r, k, v, w, u, dout, dr, dk, dv, dw, du, ws,
+                               B, H, S, ib, ih, is, st);
+    case 32:
+      return launch_bwd<T, 32>(r, k, v, w, u, dout, dr, dk, dv, dw, du, ws,
+                               B, H, S, ib, ih, is, st);
+    case 64:
+      return launch_bwd<T, 64>(r, k, v, w, u, dout, dr, dk, dv, dw, du, ws,
+                               B, H, S, ib, ih, is, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+int bwd_smem_by_size(int N) {
+  switch (N) {
+    case 8: return bwd_smem_bytes<T, 8>();
+    case 16: return bwd_smem_bytes<T, 16>();
+    case 32: return bwd_smem_bytes<T, 32>();
+    case 64: return bwd_smem_bytes<T, 64>();
+    default: return -1;
+  }
+}
+
 }  // namespace
 
 // r, k, v (dtype 0: float32, 1: bfloat16) and w (float32): (B, H, S, N)
@@ -384,5 +832,54 @@ extern "C" int wkv6_plan(int dtype, int B, int H, int N, int* out) {
   const int plan[8] = {N / kCols, H,     B,     kThreads,
                        smem,      kChunk, kCols, kRowGroups};
   for (int i = 0; i < 8; ++i) out[i] = plan[i];
+  return 0;
+}
+
+// The gradients of wkv6_fwd: r, k, v (dtype 0: float32, 1: bfloat16), w
+// and dout (float32): (B, H, S, N) at the shared strides (ib, ih, is), as
+// are the outputs dr, dk, dv (r's dtype) and dw (float32); u: (H, N) and
+// du (H, N) float32, contiguous; ws: the workspace of wkv6_bwd_plan's
+// bytes, 16-byte aligned. The last dimension contiguous everywhere, every
+// pointer and every stride in bytes a multiple of 16. Launches three
+// kernels on `stream` and returns the first launch error.
+extern "C" int wkv6_bwd(const void* r, const void* k, const void* v,
+                        const void* w, const void* u, const void* dout,
+                        void* dr, void* dk, void* dv, void* dw, void* du,
+                        void* ws, int dtype, int B, int H, int S, int N,
+                        long long ib, long long ih, long long is,
+                        void* stream) {
+  if (B <= 0 || H <= 0 || S <= 0 || B > 65535 || H > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0:
+      return (int)bwd_by_size<float>(N, r, k, v, w, u, dout, dr, dk, dv, dw,
+                                     du, ws, B, H, S, ib, ih, is, st);
+    case 1:
+      return (int)bwd_by_size<__nv_bfloat16>(N, r, k, v, w, u, dout, dr, dk,
+                                             dv, dw, du, ws, B, H, S, ib, ih,
+                                             is, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The launches wkv6_bwd makes for (dtype, B, H, S, N): out = {main grid x,
+// y, z, threads, dynamic shared memory in bytes, reduce grid x (chunks),
+// reduce threads, du grid, workspace bytes (as two ints: low 31 bits,
+// then the rest)}. Returns a CUDA error code.
+extern "C" int wkv6_bwd_plan(int dtype, int B, int H, int S, int N,
+                             int* out) {
+  const int smem = dtype == 0   ? bwd_smem_by_size<float>(N)
+                   : dtype == 1 ? bwd_smem_by_size<__nv_bfloat16>(N)
+                                : -1;
+  if (smem < 0 || S <= 0) return (int)cudaErrorInvalidValue;
+  const long long ws = 4 * (bwd_ckpt_floats(B, H, S, N) +
+                            bwd_part_floats(B, H, S, N) +
+                            bwd_du_floats(B, H, S, N));
+  const int plan[10] = {N / kCols, H, B, kThreads, smem,
+                        (S + kChunk - 1) / kChunk, N, H,
+                        (int)(ws & 0x7fffffff), (int)(ws >> 31)};
+  for (int i = 0; i < 10; ++i) out[i] = plan[i];
   return 0;
 }

@@ -130,5 +130,9 @@ def load() -> ctypes.CDLL:
             lib.wkv6_fwd.restype = ctypes.c_int
             lib.wkv6_plan.argtypes = [i] * 4 + [ctypes.POINTER(i)]
             lib.wkv6_plan.restype = ctypes.c_int
+            lib.wkv6_bwd.argtypes = [vp] * 12 + [i] * 5 + [ll] * 3 + [vp]
+            lib.wkv6_bwd.restype = ctypes.c_int
+            lib.wkv6_bwd_plan.argtypes = [i] * 5 + [ctypes.POINTER(i)]
+            lib.wkv6_bwd_plan.restype = ctypes.c_int
             _lib = lib
         return _lib

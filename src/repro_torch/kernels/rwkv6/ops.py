@@ -1,16 +1,16 @@
-"""Wrappers for the WKV6 kernel (``repro_torch/csrc/wkv6.cu``).
+"""Wrappers for the WKV6 kernels (``repro_torch/csrc/wkv6.cu``).
 
 A tensor on the CPU goes to the plain version in ``ref``; a tensor on the
 card launches the kernel, and anything else raises. There is no fallback
-from one to the other. ``LAUNCHES`` counts kernel launches, so a run can
-show that its path went through the kernel.
+from one to the other. ``LAUNCHES`` counts forward kernel launches and
+``BWD_LAUNCHES`` backward ones (``wkv6_bwd``: one call, three kernels on
+the stream), so a run can show that its path went through them.
 
-Autograd: on the CPU it runs through the plain version. The kernel has
-no backward yet, so a call on the card where any input requires grad
-raises ``NotImplementedError`` (``ROADMAP.md`` Queue 1, "wkv6 backward
-kernel and rwkv6 training on the card"): it neither detaches the output
-nor falls back to the plain version. Under ``torch.no_grad`` the call is
-the launch.
+Autograd: on the CPU it runs through the plain version. On the card
+every call goes through the ``WKV6`` autograd Function: its forward is
+the forward kernel, its backward the ``wkv6_bwd`` kernel (the explicit
+reverse recurrence of ``ref.wkv6_bwd_ref``). Without grad the Function
+runs its forward once and records no graph.
 """
 from __future__ import annotations
 
@@ -28,6 +28,7 @@ COLS_PER_THREAD = 2              # columns a thread carries
 ROW_GROUPS = 8                   # threads per column, n / 8 rows each
 CHUNK = 32                       # tokens staged in shared memory at a time
 LAUNCHES = 0
+BWD_LAUNCHES = 0
 
 
 def launch_plan(b: int, h: int, s: int, n: int, dtype: torch.dtype) -> dict:
@@ -96,13 +97,75 @@ def _launch(r, k, v, w, u, heads: int) -> torch.Tensor:
     return out
 
 
-def _no_grad_on_card(*ts: torch.Tensor) -> None:
-    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
-        raise NotImplementedError(
-            "wkv6 has no backward on the card: the kernel's gradient is "
-            "not ported yet (ROADMAP.md Queue 1, \"wkv6 backward kernel "
-            "and rwkv6 training on the card\"); train rwkv6 on the CPU, "
-            "or call wkv6 under torch.no_grad()")
+def bwd_launch_plan(b: int, h: int, s: int, n: int, dtype: torch.dtype
+                    ) -> dict:
+    """The launches ``wkv6_bwd`` makes: ``grid``/``threads`` of the main
+    kernel (the forward's), its ``smem_bytes`` (two chunk buffers of r,
+    k, w at all n rows and v, do at the CTA's columns, and the f32 states
+    before each token of a chunk at the CTA's columns), the reduce
+    kernel's grid ``(chunks, h, b)`` of n threads, the du kernel's grid
+    of h CTAs, and the f32 workspace the wrapper allocates: the chunks'
+    start states, the column groups' partials of dr, dk and dw, and the
+    partials of du (``workspace_floats``, by part)."""
+    es = torch.empty(0, dtype=dtype).element_size()
+    groups, nch = n // COLS, -(-s // CHUNK)
+    stage = CHUNK * (n * (2 * es + 4) + COLS * (es + 4))
+    parts = {"ckpt": b * h * groups * nch * COLS * n,
+             "partials": 3 * groups * b * h * s * n,
+             "du": b * nch * h * n}
+    return {"grid": (groups, h, b),
+            "threads": COLS // COLS_PER_THREAD * ROW_GROUPS,
+            "smem_bytes": 2 * stage + CHUNK * n * COLS * 4,
+            "reduce_grid": (nch, h, b), "reduce_threads": n,
+            "du_grid": (h,), "workspace_floats": parts,
+            "workspace_bytes": 4 * sum(parts.values())}
+
+
+def _launch_bwd(r, k, v, w, u, do, heads: int) -> tuple:
+    """Run ``wkv6_bwd`` in the layout whose head axis is ``heads``:
+    (dr, dk, dv) in r's dtype, dw and du in f32, in the inputs' shapes and
+    layout."""
+    global BWD_LAUNCHES
+    from repro_torch.kernels.build import load
+    r, k, v, w, u, do = (_aligned(a.contiguous())
+                         for a in (r, k, v, w, u, do.float()))
+    dr, dk, dv = (torch.empty_like(r) for _ in range(3))
+    dw = torch.empty_like(w)
+    du = torch.empty_like(u)
+    seq = 3 - heads
+    b, h, s, n = r.shape[0], r.shape[heads], r.shape[seq], r.shape[3]
+    if b * h * s == 0:
+        return dr.zero_(), dk.zero_(), dv.zero_(), dw.zero_(), du.zero_()
+    plan = bwd_launch_plan(b, h, s, n, r.dtype)
+    ws = torch.empty(plan["workspace_bytes"] // 4, dtype=torch.float32,
+                     device=r.device)
+    # every tensor is contiguous in one shape: one set of strides
+    rc = load().wkv6_bwd(
+        *(ctypes.c_void_p(a.data_ptr())
+          for a in (r, k, v, w, u, do, dr, dk, dv, dw, du, ws)),
+        DTYPES[r.dtype], b, h, s, n, r.stride(0), r.stride(heads),
+        r.stride(seq),
+        ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    BWD_LAUNCHES += 1
+    if rc != 0:
+        raise RuntimeError(f"wkv6_bwd launch failed: CUDA error {rc}")
+    return dr, dk, dv, dw, du
+
+
+class WKV6(torch.autograd.Function):
+    """The kernel with a gradient: forward ``_launch``, backward
+    ``_launch_bwd`` on the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, heads: int):
+        ctx.save_for_backward(r, k, v, w, u)
+        ctx.heads = heads
+        return _launch(r, k, v, w, u, heads)
+
+    @staticmethod
+    def backward(ctx, do):
+        grads = _launch_bwd(*ctx.saved_tensors, do, ctx.heads)
+        return (*grads, None)
 
 
 def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
@@ -111,18 +174,16 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     _check(r, k, v, w, u, heads=1)
     if route("wkv6", r, k, v, w, u) == "cpu":
         return ref.wkv6_ref(r, k, v, w, u)
-    _no_grad_on_card(r, k, v, w, u)
-    return _launch(r, k, v, w, u, heads=1)
+    return WKV6.apply(r, k, v, w, u, 1)
 
 
 def wkv6_bshn(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               w: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     """r,k,v,w: (B, S, H, n); u: (H, n) -> (B, S, H, n) f32 (the
-    models/blocks._wkv6_scan layout). The kernel reads and writes this
+    models/blocks._wkv6_scan layout). The kernels read and write this
     layout through strides, so nothing is transposed on the card."""
     _check(r, k, v, w, u, heads=2)
     if route("wkv6", r, k, v, w, u) == "cpu":
         args = (a.transpose(1, 2) for a in (r, k, v, w))
         return ref.wkv6_ref(*args, u).transpose(1, 2)
-    _no_grad_on_card(r, k, v, w, u)
-    return _launch(r, k, v, w, u, heads=2)
+    return WKV6.apply(r, k, v, w, u, 2)

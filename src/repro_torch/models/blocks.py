@@ -17,13 +17,16 @@ Training (``lm.loss_fn``, driven by ``launch/train.py``) differentiates
 these functions with autograd. On the CPU the gradient runs through the
 plain versions. On the card the self-attention gradient is the flash
 kernel's torch-op backward (``kernels/flash_attention/bwd.py``: the
-softmax recomputed a block of query rows at a time), and an rwkv6 layer
-raises ``NotImplementedError`` under grad, since ``wkv6`` has no
-backward there yet; every other block's gradient is autograd's through
-its torch ops.
+softmax recomputed a block of query rows at a time), and an rwkv6
+layer's is the hand-written ``wkv6_bwd`` kernel (the ``WKV6`` autograd
+Function of ``kernels/rwkv6/ops.py``); every other block's gradient is
+autograd's through its torch ops.
 
-The distribution hooks (``dist``, among them the expert-parallel
-``moe_apply_ep``) are not ported yet (``ROADMAP.md`` Queue 1).
+The ``dist`` argument is the port's ``distributed.DistContext``: each
+rank holds its local tensors, so the blocks' sharding constraints are
+identities and attention, rwkv6 and Mamba need nothing of it. The
+expert-parallel MoE (``moe_apply_ep``) is not ported yet (``ROADMAP.md``
+Queue 1): a MoE block given a ``dist`` whose config asks for it raises.
 """
 from __future__ import annotations
 
@@ -49,9 +52,12 @@ def unported(what: str, item: str) -> NotImplementedError:
 
 
 def _no_dist(dist) -> None:
+    """The hook of the expert-parallel MoE (``moe_apply_ep``), which is
+    not ported: raises when given a ``dist``."""
     if dist is not None:
-        raise unported("dist (sharding, vocab-parallel, flashdecode, "
-                       "expert-parallel MoE)", "Queue 1, distribution layer")
+        raise unported("the expert-parallel MoE (moe_apply_ep, "
+                       "moe_shard='ep_a2a' under a dist)",
+                       "Queue 1, item 7")
 
 
 # --------------------------------------------------------------------------
@@ -245,7 +251,6 @@ def attn_apply(params: Params, cfg: ModelConfig, x, positions, *,
     semantics, the ``dus`` update is an indexed write. Returns (out,
     cache).
     """
-    _no_dist(dist)
     H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     b, s, _ = x.shape
     cdt = _dtype(cfg)

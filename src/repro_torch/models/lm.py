@@ -13,9 +13,16 @@ entry point (``launch/train.py``'s step differentiates it with
 ``backward``): on the CPU autograd runs through the plain versions, as
 the JAX package differentiates its oracles; on the card the attention
 gradient is the flash kernel's torch-op backward
-(``kernels/flash_attention/bwd.py``), and an rwkv6 layer raises, since
-``wkv6`` has no backward there yet. Not ported yet (``ROADMAP.md``
-Queue 1): ``dist``.
+(``kernels/flash_attention/bwd.py``) and the rwkv6 recurrence's the
+``wkv6_bwd`` kernel.
+
+``dist`` is a ``repro_torch.distributed.DistContext``, a rank's view of
+the mesh: where ``dist.vocab_parallel(cfg)``, the embedding lookup, the
+cross-entropy of ``loss_fn`` and the greedy token of ``decode_step``
+(``decode_return="token"``) run on the rank's vocab slice and reduce
+over its ``model`` communicator, as the JAX package's ``shard_map``s do.
+The expert-parallel MoE under a ``dist`` is not ported (``ROADMAP.md``
+Queue 1).
 """
 from __future__ import annotations
 
@@ -212,15 +219,31 @@ def _kv_cache_as_the_reference(cfg: ModelConfig, state) -> None:
     adds compute-dtype values to it, which promotes the cache to the
     compute dtype, and the state it returns holds ``k`` and ``v`` only
     (the scales are gone). This mirrors that behaviour (``ROADMAP.md``
-    Queue 3); it is not a design of an int8 cache."""
+    Queue 3); it is not a design of an int8 cache.
+
+    A float cache of a wider type than the compute dtype (f32 under bf16)
+    under ``"onehot"`` promotes the JAX package's attention output (its
+    einsum of bf16 probabilities by f32 values is f32) and with it the
+    residual stream, so its ``lax.scan`` over the groups refuses its
+    carry: "carry input and carry output must have equal types", a
+    ``TypeError`` before anything runs. The port raises the same error
+    before it updates anything, so no port path multiplies tensors of
+    two float types there."""
     cdt = B._dtype(cfg)
     kv_dt = getattr(torch, cfg.kv_cache_dtype)
-    if (cfg.kv_update == "dus" and kv_dt != cdt
-            and any(blk.mixer == "attn" for blk in cfg.pattern)):
+    attn = any(blk.mixer == "attn" for blk in cfg.pattern)
+    if cfg.kv_update == "dus" and kv_dt != cdt and attn:
         raise TypeError(
             f"decode_step: a {kv_dt} KV cache takes no {cdt} update under "
             f"kv_update='dus' (the JAX package's lax.scatter requires "
             f"arguments to have the same dtypes)")
+    if (attn and kv_dt.is_floating_point
+            and torch.promote_types(kv_dt, cdt) != cdt):
+        raise TypeError(
+            f"decode_step: a {kv_dt} KV cache promotes the {cdt} residual "
+            f"stream to {torch.promote_types(kv_dt, cdt)} (the JAX "
+            f"package's lax.scan over the groups: carry input and carry "
+            f"output must have equal types)")
     for blk, st in zip(cfg.pattern, state):
         if blk.mixer == "attn" and not st["kv"]["k"].dtype.is_floating_point:
             kv = st["kv"]
@@ -251,7 +274,6 @@ def _apply_block(bp: Params, cfg: ModelConfig, blk: BlockSpec, x, positions,
                 cache=None if state is None else state["kv"],
                 cache_len=pos, dist=dist)
     elif blk.mixer in ("mamba", "rwkv6"):
-        B._no_dist(dist)
         apply = B.mamba_apply if blk.mixer == "mamba" else B.rwkv6_apply
         mix, _ = apply(bp["mixer"], cfg, h,
                        state=None if state is None else state["ssm"])
@@ -275,7 +297,8 @@ def _apply_ffn(bp, cfg, blk, h, state, dist):
     if blk.ffn == "dense":
         return B.ffn_apply(bp["ffn"], cfg, h), None
     if blk.ffn == "moe":
-        B._no_dist(dist)
+        if cfg.moe_shard == "ep_a2a":
+            B._no_dist(dist)
         return B.moe_apply(bp["ffn"], cfg, h)
     if blk.ffn != "cmix":
         raise ValueError(blk.ffn)
@@ -310,12 +333,16 @@ def _embed_tokens(params, cfg: ModelConfig, batch, dist=None):
     ``batch["tokens"]`` (a frames model given tokens looks them up too, as
     the JAX package's does). The rows are gathered, then cast: the same
     values as casting the whole table first, as the JAX package writes
-    it, without a pass over the table on every step."""
-    B._no_dist(dist)
+    it, without a pass over the table on every step. Where
+    ``dist.vocab_parallel(cfg)``, ``dist.vp_embed`` looks the tokens up
+    in the rank's vocab slice of the (replicated) table and sums the rows
+    over ``model``."""
     dev = params["embed"].device
     if cfg.frontend == "frames" and "frames" in batch:
         return torch.as_tensor(batch["frames"], device=dev).to(B._dtype(cfg))
     tokens = torch.as_tensor(batch["tokens"], device=dev)
+    if dist is not None and dist.vocab_parallel(cfg):
+        return dist.vp_embed(params["embed"], tokens, cfg)
     return params["embed"][tokens.long()].to(B._dtype(cfg))
 
 
@@ -355,16 +382,20 @@ def loss_fn(params: Params, cfg: ModelConfig, batch, *, dist=None):
     """Cross-entropy LM loss over ``batch["labels"]`` (B, S), masked
     where a label is < 0. Returns (loss + 0.01 * the MoE aux loss,
     {"loss", "aux", "tokens"}), f32 scalars. The logits are the compute
-    dtype's product, in f32, sliced to ``vocab_size``."""
-    B._no_dist(dist)            # the vocab-parallel cross-entropy too
+    dtype's product, in f32, sliced to ``vocab_size``; where
+    ``dist.vocab_parallel(cfg)``, ``dist.vp_cross_entropy`` computes the
+    per-token loss from the rank's slice of the head."""
     x, aux = forward(params, cfg, batch, dist=dist)
     labels = torch.as_tensor(batch["labels"], device=x.device).long()
     head = lm_head(params, cfg)
-    logits = (x @ head.to(x.dtype).T).float()[..., :cfg.vocab_size]
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.take_along_dim(logits, labels.clamp(min=0)[..., None],
-                              dim=-1)[..., 0]
-    ce = lse - ll
+    if dist is not None and dist.vocab_parallel(cfg):
+        ce = dist.vp_cross_entropy(head, x, labels, cfg)
+    else:
+        logits = (x @ head.to(x.dtype).T).float()[..., :cfg.vocab_size]
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.take_along_dim(logits, labels.clamp(min=0)[..., None],
+                                  dim=-1)[..., 0]
+        ce = lse - ll
     mask = (labels >= 0).float()
     loss = (ce * mask).sum() / torch.clamp(mask.sum(), min=1.0)
     total = loss + 0.01 * aux
@@ -393,7 +424,11 @@ def decode_step(params: Params, cfg: ModelConfig, state, batch, pos, *,
     A CPU ``pos`` at or past the KV cache's length raises ``ValueError``
     (``blocks.check_kv_room``), where the JAX package silently drops or
     clamps the cache update. A CUDA ``pos`` is not read on the host,
-    which would cost a sync per step: its caller keeps it in range."""
+    which would cost a sync per step: its caller keeps it in range.
+
+    With ``cfg.decode_return == "token"`` and a vocab-parallel ``dist``
+    it returns the greedy token ids (B,) int32 in place of the logits
+    (``dist.vp_greedy_token``: the (B, V) logits never exist)."""
     _kv_cache_as_the_reference(cfg, state)
     kv = next((st["kv"]["k"] for blk, st in zip(cfg.pattern, state)
                if blk.mixer == "attn"), None)
@@ -408,6 +443,10 @@ def decode_step(params: Params, cfg: ModelConfig, state, batch, pos, *,
             x, _ = _apply_block(gp[p], cfg, blk, x, positions, state=gs[p],
                                 pos=pos, dist=dist)
     x = B.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    if (cfg.decode_return == "token" and dist is not None
+            and dist.vocab_parallel(cfg)):
+        return dist.vp_greedy_token(lm_head(params, cfg), x[:, 0],
+                                    cfg), state
     return _logits(params, cfg, x[:, 0]), state
 
 

@@ -407,3 +407,47 @@ def test_run_processes_spawn_cpu():
     res = port_core.run_processes(2, _spawn_prog, pool_bytes=POOL,
                                   device="cpu", timeout=120)
     assert res == [(3.0, True, "cpu")] * 2
+
+
+def _pieces_prog(env, sizes):
+    """allreduce, reduce_scatter and allgather of integer-valued f32
+    payloads (exact sums in any order) of ``sizes`` elements; the
+    largest round buffer the comm leased, and its lease cap."""
+    c, r = env.comm, env.rank
+    a, rs, ag = (torch.arange(m, dtype=torch.float32) % 251 + r
+                 for m in sizes)
+    out = (c.allreduce(a).numpy(), c.reduce_scatter(rs).numpy(),
+           c.allgather(ag).numpy())
+    leased = max(pb.nbytes for bufs in c._rounds._free_sets
+                 for pb in bufs.values())
+    return out, leased, c.lease_cap, c._use_resident(4 * sizes[0])
+
+
+def test_collectives_above_the_lease_cap_run_in_pieces():
+    """A payload larger than ``lease_cap`` (an eighth of a rank's share
+    of the pool: 64 KiB here) runs in pieces: the results equal those of
+    a pool that takes each payload whole, and no round buffer the comm
+    leases exceeds twice the cap."""
+    n, sizes = 4, (70_001, 4 * 30_001 + 3, 30_001)
+    small, whole = (port_core.run_threads(
+        n, functools.partial(_pieces_prog, sizes=sizes), pool_bytes=pool,
+        device="cpu", timeout=120) for pool in (2 * MiB, 64 * MiB))
+    cap = small[0][2]
+    assert cap == 64 << 10 and small[0][3]
+    assert all(4 * m > cap for m in sizes[:2]) and 4 * n * sizes[2] > cap
+    assert all(s[1] <= 2 * cap for s in small)
+    assert all(w[1] > 2 * cap for w in whole)      # the whole payloads
+    rows = -(-sizes[1] // n)
+    padded = np.zeros(n * rows, np.float32)
+    for rank, (got, want) in enumerate(zip(small, whole)):
+        for g, w in zip(got[0], want[0]):
+            np.testing.assert_array_equal(g, w)
+        base = np.arange(max(sizes), dtype=np.float32) % 251
+        np.testing.assert_array_equal(got[0][0], n * base[:sizes[0]]
+                                      + sum(range(n)))
+        padded[:sizes[1]] = n * base[:sizes[1]] + sum(range(n))
+        chunk = (rank + 1) % n
+        np.testing.assert_array_equal(
+            got[0][1], padded[chunk * rows:(chunk + 1) * rows])
+        np.testing.assert_array_equal(got[0][2], np.concatenate(
+            [base[:sizes[2]] + k for k in range(n)]))

@@ -17,20 +17,33 @@ def card():
         pytest.skip("needs a CUDA device: the kernels run only on the card")
 
 
-def test_wkv6_on_the_card_raises_under_grad(card):
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+def test_wkv6_backward_on_the_card(card, dtype, tol):
+    """The WKV6 Function (one forward launch, one ``wkv6_bwd``) in the
+    model's BSHN layout against ``wkv6_bwd_ref`` on the card: each
+    gradient in its input's dtype, within tol x its max |g|
+    (``chip_smoke.GRAD_TOL``), at chunk edges (S = 77)."""
     from repro_torch.kernels.rwkv6 import ops as wk
-    b, h, s, n = 1, 2, 8, 16
-    r, k, v = (torch.randn(b, h, s, n, device="cuda") for _ in range(3))
-    w = torch.rand(b, h, s, n, device="cuda")
-    u = torch.randn(h, n, device="cuda")
-    r.requires_grad_(True)
-    launches = wk.LAUNCHES
-    with pytest.raises(NotImplementedError, match="wkv6 backward kernel"):
-        wk.wkv6(r, k, v, w, u)
-    assert wk.LAUNCHES == launches
-    with torch.no_grad():
-        assert wk.wkv6(r, k, v, w, u).shape == (b, h, s, n)
-    assert wk.LAUNCHES == launches + 1
+    from repro_torch.kernels.rwkv6 import ref
+    g = torch.Generator(device="cuda").manual_seed(0)
+    b, h, s, n = 2, 4, 77, 64
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+    r, k, v = (randn(b, h, s, n).to(dtype) for _ in range(3))
+    w = torch.exp(-torch.exp(randn(b, h, s, n) * 0.5 - 2.0))
+    u, do = randn(h, n) * 0.5, randn(b, h, s, n)
+    want = ref.wkv6_bwd_ref(r, k, v, w, u, do)
+    leaves = [t.clone().requires_grad_(True) for t in (r, k, v, w, u)]
+    fwd, bwd = wk.LAUNCHES, wk.BWD_LAUNCHES
+    wk.wkv6_bshn(*(t.transpose(1, 2) for t in leaves[:4]),
+                 leaves[4]).backward(do.transpose(1, 2))
+    assert wk.LAUNCHES == fwd + 1 and wk.BWD_LAUNCHES == bwd + 1
+    for t, want_g in zip(leaves, want):
+        assert t.grad.dtype == t.dtype
+        err = float((t.grad.float() - want_g.float()).abs().max())
+        assert err <= tol * float(want_g.float().abs().max())
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),

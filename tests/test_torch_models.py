@@ -395,8 +395,8 @@ def test_dus_over_a_cache_of_another_type_raises_as_jax(compute, cache):
     default config's f32 setting): the JAX package's first decode step
     raises ``TypeError`` (lax.scatter of mixed types), and so does the
     port's, where it used to run over its promoted cache. Under
-    ``"onehot"`` both run the f32 case (the bf16 one is ROADMAP.md's
-    Queue 3 item on a float32 cache under bf16 compute)."""
+    ``"onehot"`` both run the f32 case (both raise on the bf16 one:
+    ``test_onehot_f32_cache_under_bf16_compute_as_jax``)."""
     b, seq = 2, 4
     for kv_update in ("dus", "onehot")[:2 if compute == "float32" else 1]:
         jcfg, cfg = _cfgs("smollm-135m", compute_dtype=compute,
@@ -421,3 +421,28 @@ def test_dus_over_a_cache_of_another_type_raises_as_jax(compute, cache):
                 tstep()
         else:
             _close(tstep(), jstep())
+
+
+def test_onehot_f32_cache_under_bf16_compute_as_jax():
+    """A float32 KV cache under bf16 compute and ``kv_update="onehot"``
+    (smollm-135m reduced, batch 2, cache 4): the JAX package's attention
+    output takes the wider type, f32, and with it the residual stream, so
+    its first ``decode_step`` raises ``TypeError`` at its ``lax.scan``
+    over the groups (carry input and output of different types). The
+    port raises the same error before it touches the state."""
+    b, seq = 2, 4
+    jcfg, cfg = _cfgs("smollm-135m", compute_dtype="bfloat16",
+                      kv_cache_dtype="float32", kv_update="onehot")
+    jp, tp = _weights(jcfg, cfg)
+    tok = _tokens(cfg, b, 1)
+    jst = jlm.decode_state_init(jcfg, b, seq)
+    tst = lm.decode_state_init(cfg, b, seq, device="cpu")
+    assert {t.dtype for t in lm.tree_leaves(tst)} == {torch.float32}
+    assert {a.dtype for a in jax.tree.leaves(jst)} == {np.dtype("float32")}
+    with pytest.raises(TypeError, match="carry input and carry output"):
+        jlm.decode_step(jp, jcfg, jst, _jb({"tokens": tok}),
+                        jnp.zeros((b,), jnp.int32))
+    with pytest.raises(TypeError, match="carry input and carry output"):
+        lm.decode_step(tp, cfg, tst, _tb({"tokens": tok}),
+                       torch.zeros((b,), dtype=torch.int32))
+    assert not any(bool(t.any()) for t in lm.tree_leaves(tst))

@@ -1,15 +1,22 @@
 """The port's WKV6 (plain PyTorch version on the CPU) against the JAX
 package's Pallas kernel in interpret mode and its sequential oracle
 (``blocks._wkv6_scan``): the same numpy inputs through both, on the
-cases of tests/test_kernels.py::TestWKV6, held to rel < 1e-4."""
+cases of tests/test_kernels.py::TestWKV6, held to rel < 1e-4. The
+backward (``ref.wkv6_bwd_ref``, and ``wkv6_bwd``'s schedule emulated in
+plain torch) against ``jax.vjp`` of the JAX oracle, and the ``WKV6``
+Function's plumbing on the card route with a stand-in library."""
+import ctypes
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels.rwkv6.kernel import wkv6 as jax_wkv6  # noqa: E402
+from repro.kernels.rwkv6.ref import wkv6_ref as jax_ref  # noqa: E402
 from repro.kernels.rwkv6.ops import wkv6_bshn as jax_wkv6_bshn  # noqa: E402
 from repro.models.blocks import _wkv6_scan as jax_scan  # noqa: E402
 from repro_torch.kernels.rwkv6 import ops, ref  # noqa: E402
@@ -240,35 +247,241 @@ def test_launch_arguments(layout, dtype, misaligned, monkeypatch):
     assert plan["chunks"][-1] == (64, 77)
 
 
+class _FakeBwdLibrary(_FakeLibrary):
+    """Also stands in for ``wkv6_bwd``: records its arguments and writes
+    each gradient's index + 1 into it (through the pointer), so that a
+    test sees which buffer came back as which gradient."""
+
+    def wkv6_bwd(self, *args):
+        vals = [a.value if hasattr(a, "value") else a for a in args]
+        self.calls.append(vals)
+        ptrs, (dt, b, h, s, n) = vals[:12], vals[12:17]
+        es = 4 if dt == 0 else 2
+        sizes = [b * h * s * n * es] * 3 + [b * h * s * n * 4, h * n * 4]
+        for i, (ptr, nbytes) in enumerate(zip(ptrs[6:11], sizes)):
+            ctypes.memset(ptr, i + 1, nbytes)
+        return 0
+
+
 @pytest.mark.parametrize("layout", ["bhsn", "bshn"])
 def test_card_route_refuses_grad(layout, monkeypatch):
-    """The kernel has no backward: on the card route an input that
-    requires grad raises, naming the ROADMAP item, before any launch (no
-    detached output, no plain version); under ``torch.no_grad`` the same
-    call launches. On the CPU, autograd runs through the plain version."""
+    """On the card route a gradient comes from the ``wkv6_bwd`` kernel or
+    not at all: a backward launch that fails raises and leaves every
+    input without a gradient, and a kernel library that does not build
+    raises at the forward; neither falls back to autograd through the
+    plain version."""
     import types
 
     from repro_torch.kernels import build
-    lib = _FakeLibrary()
+
+    class FailingBwd(_FakeBwdLibrary):
+        def wkv6_bwd(self, *args):
+            super().wkv6_bwd(*args)
+            return 700                 # cudaErrorIllegalAddress
+
+    monkeypatch.setattr(build, "load", lambda: FailingBwd())
+    monkeypatch.setattr(ops, "route", lambda name, *ts: "cuda")
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: types.SimpleNamespace(cuda_stream=0))
+    call = ops.wkv6 if layout == "bhsn" else ops.wkv6_bshn
+    shape = (2, 3, 40, 16) if layout == "bhsn" else (2, 40, 3, 16)
+    h = 3
+    r, k, v = (torch.randn(shape).requires_grad_(True) for _ in range(3))
+    w = torch.rand(shape, requires_grad=True)
+    u = torch.randn(h, 16, requires_grad=True)
+    bwd = ops.BWD_LAUNCHES
+    out = call(r, k, v, w, u)
+    with pytest.raises(RuntimeError, match="wkv6_bwd launch failed"):
+        out.sum().backward()
+    assert ops.BWD_LAUNCHES == bwd + 1
+    assert all(t.grad is None for t in (r, k, v, w, u))
+
+    def no_library():
+        raise RuntimeError("nvcc failed")
+    monkeypatch.setattr(build, "load", no_library)
+    fwd = ops.LAUNCHES
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        call(r, k, v, w, u)
+    assert ops.LAUNCHES == fwd
+    assert all(t.grad is None for t in (r, k, v, w, u))
+
+
+@pytest.mark.parametrize("layout", ["bhsn", "bshn"])
+def test_card_route_takes_grad_through_the_function(layout, monkeypatch):
+    """On the card route every call goes through the ``WKV6`` Function:
+    one forward launch, and a
+    backward that launches ``wkv6_bwd`` once, before nothing else, with
+    the inputs and the output gradient made contiguous and 16-byte
+    aligned, one set of strides, the dtype code, B/H/S/n, the stream and
+    a workspace of ``bwd_launch_plan``'s bytes; its buffers come back as
+    dr, dk, dv (the inputs' dtype), dw and du (f32) in the inputs' shapes.
+    Under ``torch.no_grad`` the call is the launch alone. On the CPU,
+    autograd runs through the plain version and launches nothing."""
+    import types
+
+    from repro_torch.kernels import build
+    lib = _FakeBwdLibrary()
+    stream = 0x5EED0
     monkeypatch.setattr(build, "load", lambda: lib)
     monkeypatch.setattr(ops, "route", lambda name, *ts: "cuda")
     monkeypatch.setattr(torch.cuda, "current_stream",
-                        lambda: types.SimpleNamespace(cuda_stream=0x5EED0))
+                        lambda: types.SimpleNamespace(cuda_stream=stream))
     call = ops.wkv6 if layout == "bhsn" else ops.wkv6_bshn
-    r, k, v = (torch.randn(1, 2, 2, 16) for _ in range(3))    # H = S = 2
-    w, u = torch.rand(1, 2, 2, 16), torch.randn(2, 16)
-    launches = ops.LAUNCHES
-    for needs in (w, u, r):
-        needs.requires_grad_(True)
-        with pytest.raises(NotImplementedError,
-                           match="wkv6 backward kernel and rwkv6 training"):
-            call(r, k, v, w, u)
-        needs.requires_grad_(False)
-    assert ops.LAUNCHES == launches and lib.calls == []
-    r.requires_grad_(True)
+    heads = 1 if layout == "bhsn" else 2
+    b, h, s, n = 2, 3, 40, 16
+    shape = (b, h, s, n) if heads == 1 else (b, s, h, n)
+    r, k, v = (torch.randn(shape).bfloat16().requires_grad_(True)
+               for _ in range(3))
+    w = torch.rand(shape, requires_grad=True)
+    u = torch.randn(h, n, requires_grad=True)
+    fwd, bwd = ops.LAUNCHES, ops.BWD_LAUNCHES
+    out = call(r, k, v, w, u)
+    assert type(out.grad_fn).__name__ == "WKV6Backward"
+    assert ops.LAUNCHES == fwd + 1 and ops.BWD_LAUNCHES == bwd
+    do = torch.randn(shape).transpose(0, 1).contiguous().transpose(0, 1)
+    assert not do.is_contiguous()
+    out.backward(do)
+    assert ops.LAUNCHES == fwd + 1 and ops.BWD_LAUNCHES == bwd + 1
+    args = lib.calls[-1]
+    ptrs, ints, strides = args[:12], args[12:17], args[17:20]
+    assert ints == [ops.DTYPES[torch.bfloat16], b, h, s, n]
+    assert args[20] == stream and all(p % 16 == 0 for p in ptrs)
+    c = torch.empty(shape)
+    assert strides == [c.stride(0), c.stride(heads), c.stride(3 - heads)]
+    assert ptrs[:5] == [a.data_ptr() for a in (r, k, v, w, u)]
+    plan = ops.bwd_launch_plan(b, h, s, n, torch.bfloat16)
+    assert plan["workspace_bytes"] == 4 * (
+        b * h * (n // 8) * 2 * 8 * n + 3 * (n // 8) * b * h * s * n
+        + b * 2 * h * n)                          # 2 chunks of 32 tokens
+    for i, (t, dt) in enumerate(zip((r, k, v, w, u), [torch.bfloat16] * 3
+                                    + [torch.float32] * 2)):
+        assert t.grad.dtype == dt and t.grad.shape == t.shape
+        want = torch.full(t.shape, 1, dtype=torch.uint8).fill_(i + 1)
+        assert torch.equal(t.grad.contiguous().view(torch.uint8),
+                           want.repeat_interleave(t.element_size(), -1)
+                           .view(t.shape[:-1] + (-1,)))
+    for t in (r, k, v, w, u):
+        t.grad = None
     with torch.no_grad():
         call(r, k, v, w, u)
-    assert ops.LAUNCHES == launches + 1 and len(lib.calls) == 1
+    assert ops.LAUNCHES == fwd + 2 and ops.BWD_LAUNCHES == bwd + 1
     monkeypatch.setattr(ops, "route", lambda name, *ts: "cpu")
     call(r, k, v, w, u).sum().backward()
     assert r.grad is not None and r.grad.abs().sum() > 0
+    assert ops.LAUNCHES == fwd + 2 and ops.BWD_LAUNCHES == bwd + 1
+
+
+def test_bwd_launch_plan():
+    """The backward's launches: the forward's grid of one-warp CTAs,
+    shared memory for two chunk buffers (r, k, w at all n rows; v, do at
+    the CTA's 8 columns) and the f32 states before each of a chunk's 32
+    tokens at the CTA's columns; a reduce grid of (chunks, H, B) CTAs of
+    n threads; one du CTA per head. At rwkv6-3b's launch (1, 40, 4096,
+    64) the workspace is ~1.09 GB, most of it the column groups'
+    partials of dr, dk, dw."""
+    for dt, es in ((torch.float32, 4), (torch.bfloat16, 2)):
+        for n in ops.HEAD_SIZES:
+            p = ops.bwd_launch_plan(3, 5, 77, n, dt)
+            assert p["grid"] == (n // 8, 5, 3) and p["threads"] == 32
+            assert p["smem_bytes"] == 2 * 32 * (n * (2 * es + 4)
+                                                + 8 * (es + 4)) \
+                + 32 * n * 8 * 4
+            assert p["smem_bytes"] <= 227 * 1024
+            assert p["reduce_grid"] == (3, 5, 3) and \
+                p["reduce_threads"] == n and p["du_grid"] == (5,)
+    p = ops.bwd_launch_plan(1, 40, 4096, 64, torch.bfloat16)
+    assert p["workspace_floats"]["partials"] == 3 * 8 * 40 * 4096 * 64
+    assert p["workspace_bytes"] == 1091829760
+
+
+def _vjp_case(rng, shape, bf16=False):
+    """Inputs, an output gradient, and jax.vjp of the JAX package's
+    oracle (``repro.kernels.rwkv6.ref.wkv6_ref``) at them."""
+    args = _inputs(rng, shape, 1, bf16=bf16)
+    do = rng.standard_normal(shape, dtype=np.float32)
+    _, vjp = jax.vjp(jax_ref, *map(jnp.asarray, args))
+    return args, do, [np.asarray(g) for g in vjp(jnp.asarray(do))]
+
+
+def _close_grads(got, want, tol):
+    for name, a, w in zip(("dr", "dk", "dv", "dw", "du"), got, want):
+        a = np.asarray(a.float() if isinstance(a, torch.Tensor) else a,
+                       np.float32)
+        assert a.shape == w.shape, name
+        assert float(np.abs(a - w).max()) <= tol * float(np.abs(w).max()), \
+            name
+
+
+@pytest.mark.parametrize("shape", [(2, 3, 40, 16), (1, 2, 64, 64)])
+def test_wkv6_bwd_ref_matches_jax_vjp(shape, rng):
+    """The reverse recurrence (``ref.wkv6_bwd_ref``, not autograd)
+    against ``jax.vjp`` of the JAX oracle, within 1e-5 x max|g| of each
+    gradient; in bf16 it returns dr, dk, dv in bf16, dw and du in f32."""
+    args, do, want = _vjp_case(rng, shape)
+    got = ref.wkv6_bwd_ref(*map(torch.from_numpy, args),
+                           torch.from_numpy(do))
+    assert all(g.dtype == torch.float32 for g in got)
+    _close_grads(got, want, 1e-5)
+    t = [torch.from_numpy(a) for a in args]
+    got = ref.wkv6_bwd_ref(*(a.bfloat16() for a in t[:3]), *t[3:],
+                           torch.from_numpy(do))
+    assert [g.dtype for g in got] == [torch.bfloat16] * 3 + \
+        [torch.float32] * 2
+
+
+def emulate_bwd_kernel(r, k, v, w, u, do):
+    """``wkv6_bwd``'s schedule in plain torch (BHSN, f32): per column
+    group of 8 state columns, the states at each 32-token chunk's start
+    from a forward walk, then each chunk in reverse: its states
+    recomputed from the chunk's start, the reverse walk with G, dv of
+    the group's columns, and the group's partials of dr, dk and dw
+    without the u a_t terms; then the reduce kernel's sums of the
+    partials in group order plus u a_t, and du."""
+    b, h, s, n = r.shape
+    chunks = [(t, min(t + 32, s)) for t in range(0, s, 32)]
+    part = torch.zeros(3, n // 8, b, h, s, n)
+    dv = torch.empty(b, h, s, n)
+    for g in range(n // 8):
+        cols = slice(8 * g, 8 * g + 8)
+
+        def step(st, t):
+            return st * w[:, :, t, :, None] + \
+                k[:, :, t, :, None] * v[:, :, t, None, cols]
+        st, starts = torch.zeros(b, h, n, 8), []
+        for t0, t1 in chunks:
+            starts.append(st)
+            for t in range(t0, t1):
+                st = step(st, t)
+        gr = torch.zeros(b, h, n, 8)
+        for (t0, t1), st in reversed(list(zip(chunks, starts))):
+            prev = []
+            for t in range(t0, t1):
+                prev.append(st)
+                st = step(st, t)
+            for t in range(t1 - 1, t0 - 1, -1):
+                sp, dd = prev[t - t0], do[:, :, t, cols]
+                part[0, g, :, :, t] = (sp * dd[:, :, None]).sum(-1)
+                part[1, g, :, :, t] = (gr * v[:, :, t, None, cols]).sum(-1)
+                part[2, g, :, :, t] = (gr * sp).sum(-1)
+                ruk = (r[:, :, t] * u * k[:, :, t]).sum(-1)
+                dv[:, :, t, cols] = ruk[..., None] * dd + \
+                    (k[:, :, t, :, None] * gr).sum(-2)
+                gr = w[:, :, t, :, None] * gr + \
+                    r[:, :, t, :, None] * dd[:, :, None]
+    a = (v * do).sum(-1, keepdim=True)
+    dr = part[0].sum(0) + u[:, None] * k * a
+    dk = part[1].sum(0) + r * u[:, None] * a
+    du = (r * k * a).sum((0, 2))
+    return dr, dk, dv, part[2].sum(0), du
+
+
+@pytest.mark.parametrize("shape", [(2, 3, 40, 16), (1, 2, 77, 8),
+                                   (1, 1, 33, 64)])
+def test_bwd_schedule_emulation_matches_jax_vjp(shape, rng):
+    """The kernel's decomposition (column groups, chunk checkpoints,
+    partials reduced after the walk) gives jax.vjp's gradients within
+    1e-5 x max|g|."""
+    args, do, want = _vjp_case(rng, shape)
+    got = emulate_bwd_kernel(*map(torch.from_numpy, args),
+                             torch.from_numpy(do))
+    _close_grads(got, want, 1e-5)
