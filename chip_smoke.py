@@ -16,8 +16,10 @@ Phases, each of which fails the run on error:
            none; ``cellcopy``'s cluster size per shape and its
            shared memory (failing unless ``ops.smem_bytes`` states it);
            ``wkv6``'s CTAs and dynamic shared memory per instance, and
-           the registers and spills of each ``wkv6_bwd`` instance (main
-           and reduce kernels) with its shared memory and workspace.
+           the registers and spills of each ``wkv6_bwd`` kernel
+           instance (local, carry, chunk, du) with its shared memory,
+           cluster size, CTAs an SM (the runtime's occupancy) and warps
+           a scheduler, and the workspace.
 2. kernel  each kernel against its plain PyTorch version on the card:
            ``cellcopy`` bit-exact on the copied bytes and the per-cell
            sums (the cell shapes of ``tests/test_kernels.py``,
@@ -40,7 +42,8 @@ Phases, each of which fails the run on error:
            likewise, within rel < 1e-4, at the edges of its 32-token
            chunks too, each launch as ``ops.launch_plan`` gives it;
            ``wkv6_bwd`` (``WKV6_BWD_CASES``: f32 and bf16, small shapes,
-           chunk edges and rwkv6-3b's launch (1, 40, 4096, 64)) in both
+           chunk edges, S = 1, w near 1 and near 0, and rwkv6-3b's
+           launch (1, 40, 4096, 64)) in both
            layouts against ``wkv6_bwd_ref``, and the ``WKV6`` Function's
            gradients in the model's layout against autograd through
            ``wkv6_ref``, each gradient within ``GRAD_TOL`` x its max |g|
@@ -152,7 +155,8 @@ Phases, each of which fails the run on error:
            at every shape phases 4 and 5 launch it at, beside SDPA,
            with its launches per model and training run, ``wkv6``'s in
            cycles per token, ``wkv6_bwd``'s at rwkv6-3b's training launch
-           beside its bound and the plain backward, and the
+           beside its bound and the plain backward, with its workspace
+           and each kernel's share (traced in phase 2), and the
            f32 flash kernel at the parity prefill's shapes and at the
            long prompt, beside its FMA and split-TF32 bounds),
            one-way latency and bandwidth per path and size, one-sided
@@ -1100,16 +1104,22 @@ WKV6_CASES = [
     (1, 40, 33, 64, "float32"), (1, 40, 4095, 64, "bfloat16"),
     (4, 8, 77, 64, "bfloat16")]
 # the wkv6 backward (``wkv6_bwd``, the WKV6 Function's): (b, h, s, n,
-# dtype of r, k, v): small shapes, the chunk edges (S = 33, 40, 77, 100)
-# and rwkv6-3b's launch shape at train_4k's seq_len; each case in both
-# layouts against ``wkv6_bwd_ref``, and the Function's gradients in the
-# model's layout against autograd through ``wkv6_ref``, each gradient
-# within GRAD_TOL x its max |g|
+# dtype of r, k, v[, decay]): small shapes, the chunk edges (S = 33, 40,
+# 77, 100), S = 1, w = 1 - 1e-3 over 32 chunks (long memory: the carry
+# over chunks dominates) and w ~ 0.01 (a chunk's decay product underflows
+# to 0), and rwkv6-3b's launch shape at train_4k's seq_len; each case in
+# both layouts against ``wkv6_bwd_ref``, and the Function's gradients in
+# the model's layout against autograd through ``wkv6_ref``, each
+# gradient within GRAD_TOL x its max |g|
 WKV6_LAUNCH = (1, 40, LONG_PROMPT, 64)
 WKV6_BWD_CASES = [
     (2, 2, 64, 16, "float32"), (1, 4, 100, 32, "float32"),
     (2, 3, 40, 16, "bfloat16"), (1, 1, 33, 8, "float32"),
-    (2, 4, 77, 64, "bfloat16"), (*WKV6_LAUNCH, "float32"),
+    (2, 4, 77, 64, "bfloat16"), (2, 4, 1, 64, "bfloat16"),
+    (1, 40, 33, 64, "float32"), (1, 8, 1024, 64, "float32", "near_one"),
+    (1, 8, 1024, 64, "bfloat16", "near_one"),
+    (2, 4, 77, 64, "bfloat16", "near_zero"),
+    (1, 2, 33, 32, "float32", "near_zero"), (*WKV6_LAUNCH, "float32"),
     (*WKV6_LAUNCH, "bfloat16")]
 
 
@@ -1124,10 +1134,16 @@ def _flash_inputs(b, h, kv, s, d, dtype, g):
             _randn((b, kv, s, d), g, dtype))
 
 
-def _wkv6_inputs(b, h, s, n, dtype, g):
+def _wkv6_inputs(b, h, s, n, dtype, g, decay=None):
+    """r, k, v, w, u of a case; w = exp(-exp(x)) (the model's spread),
+    or with ``decay`` "near_one" 1 - 1e-3, "near_zero" in [0.005, 0.02)."""
     import torch
     r, k, v = (_randn((b, h, s, n), g, dtype) for _ in range(3))
     w = torch.exp(-torch.exp(_randn((b, h, s, n), g) * 0.5 - 2.0))
+    if decay == "near_one":
+        w = torch.full_like(w, 1 - 1e-3)
+    elif decay == "near_zero":
+        w = 0.005 + 0.015 * torch.rand(w.shape, device="cuda", generator=g)
     return r, k, v, w, _randn((h, n), g) * 0.5
 
 
@@ -1162,13 +1178,14 @@ def _wkv6_bwd_plan(b, h, s, n, dtype) -> dict:
 
     from repro_torch.kernels import build
     from repro_torch.kernels.rwkv6 import ops
-    out = (ctypes.c_int * 10)()
+    out = (ctypes.c_int * 12)()
     dt = getattr(torch, dtype)
     rc = build.load().wkv6_bwd_plan(ops.DTYPES[dt], b, h, s, n, out)
     plan = ops.bwd_launch_plan(b, h, s, n, dt)
     ws = plan["workspace_bytes"]
-    want = [*plan["grid"], plan["threads"], plan["smem_bytes"],
-            plan["reduce_grid"][0], plan["reduce_threads"],
+    want = [*plan["grid"], plan["cluster"], plan["threads"],
+            plan["smem_bytes"], plan["local_smem_bytes"],
+            plan["carry_grid"][0], plan["carry_threads"],
             plan["du_grid"][0], ws & 0x7FFFFFFF, ws >> 31]
     if rc or list(out) != want:
         fail(f"wkv6_bwd launch of {(b, h, s, n, dtype)}: library "
@@ -1262,9 +1279,9 @@ def wkv6_bwd_phase() -> dict:
     g = torch.Generator(device="cuda").manual_seed(14)
     names = ("dr", "dk", "dv", "dw", "du")
     cases = []
-    for b, h, s, n, dt in WKV6_BWD_CASES:
+    for b, h, s, n, dt, *decay in WKV6_BWD_CASES:
         _wkv6_bwd_plan(b, h, s, n, dt)
-        args = _wkv6_inputs(b, h, s, n, dt, g)
+        args = _wkv6_inputs(b, h, s, n, dt, g, *decay)
         do = _randn((b, h, s, n), g)
         want = wk_ref.wkv6_bwd_ref(*args, do)
         before = wk.BWD_LAUNCHES
@@ -1284,11 +1301,14 @@ def wkv6_bwd_phase() -> dict:
         for a in leaves:
             a.grad = None
         wk_ref.wkv6_ref(*leaves).backward(do)
-        auto = [a.grad for a in leaves]
+        # (at S = 1 the output does not depend on w: autograd leaves it
+        # without a gradient, which is 0)
+        auto = [torch.zeros_like(a) if a.grad is None else a.grad
+                for a in leaves]
         if wk.BWD_LAUNCHES != before + 3:
             fail(f"wkv6_bwd ({b},{h},{s},{n}) {dt}: "
                  f"{wk.BWD_LAUNCHES - before} backward launches, want 3")
-        what = f"B={b} H={h} S={s} n={n} {dt}"
+        what = " ".join([f"B={b} H={h} S={s} n={n}", *decay, dt])
         shares, err = {}, 0.0
         for kind, gs, ws in (("kernel_bhsn", got["bhsn"], want),
                              ("kernel_bshn", got["bshn"], want),
@@ -1420,21 +1440,64 @@ def model_kernel_timings() -> tuple[list[dict], list[dict]]:
     return flash, wkv
 
 
-def wkv6_bwd_timing() -> dict:
-    """``wkv6_bwd`` at rwkv6-3b's training launch (``WKV6_LAUNCH``, bf16
-    r, k, v in the model's BSHN layout) beside its bound and the plain
-    backward's time (``wkv6_bwd_ref``, a Python loop over tokens: timed
-    without the spin, once)."""
+def kernel_split_ms(fn, reps: int = 5) -> dict | None:
+    """Device ms per call of ``fn`` by kernel name (``torch.profiler``'s
+    ``key_averages`` over ``reps`` calls after one warm call), or None
+    where the trace holds some kernel fewer or more than ``reps`` times
+    (a trace that lost events)."""
     import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
 
-    from repro_torch.kernels.rwkv6 import ops as wk
-    from repro_torch.kernels.rwkv6 import ref as wk_ref
+    def name(key: str) -> str:       # the kernel's name, no arguments
+        return re.sub(r"^void |\(anonymous namespace\)::", "",
+                      key).split("(")[0][:60]
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    if not kernels or any(e.count != reps for e in kernels):
+        return None
+    return {name(e.key): e.self_device_time_total / 1e3 / reps
+            for e in kernels}
+
+
+def _wkv6_bwd_launch_args() -> tuple:
+    """r, k, v, w (bf16 r, k, v in the model's BSHN layout), u and do at
+    rwkv6-3b's training launch (``WKV6_LAUNCH``)."""
+    import torch
     g = torch.Generator(device="cuda").manual_seed(15)
     b, h, s, n = WKV6_LAUNCH
     args = _wkv6_inputs(b, h, s, n, "bfloat16", g)
-    r, k, v, w = (a.transpose(1, 2).contiguous() for a in args[:4])
-    u = args[4]
-    do = _randn((b, s, h, n), g)
+    return (*(a.transpose(1, 2).contiguous() for a in args[:4]), args[4],
+            _randn((b, s, h, n), g))
+
+
+def wkv6_bwd_split() -> dict | None:
+    """Each ``wkv6_bwd`` kernel's device ms at ``WKV6_LAUNCH``
+    (``kernel_split_ms``). Taken in phase 2, before the run's other
+    traces: taken in the report, after them, the trace held some of
+    these kernels' launches and not others (two runs on the H100)."""
+    from repro_torch.kernels.rwkv6 import ops as wk
+    args = _wkv6_bwd_launch_args()
+    return kernel_split_ms(lambda: wk._launch_bwd(*args, heads=2))
+
+
+def wkv6_bwd_timing(split: dict | None) -> dict:
+    """``wkv6_bwd`` at rwkv6-3b's training launch (``WKV6_LAUNCH``, bf16
+    r, k, v in the model's BSHN layout) beside its bound and the plain
+    backward's time (``wkv6_bwd_ref``, a Python loop over tokens: timed
+    without the spin, once); its workspace, and each kernel's share of
+    its device time (``split``, from ``wkv6_bwd_split``)."""
+    from repro_torch.kernels.rwkv6 import ops as wk
+    from repro_torch.kernels.rwkv6 import ref as wk_ref
+    b, h, s, n = WKV6_LAUNCH
+    r, k, v, w, u, do = _wkv6_bwd_launch_args()
     kern, issued = _time_ms(
         lambda: wk._launch_bwd(r, k, v, w, u, do, heads=2), 10, 2)
     plain, _ = _time_ms(lambda: wk_ref.wkv6_bwd_ref(
@@ -1447,9 +1510,13 @@ def wkv6_bwd_timing() -> dict:
     return {"shape": f"B={b} H={h} S={s} n={n} bf16 r,k,v bshn",
             "ms": kern, "issued_ms": issued, "plain_ms": plain,
             "library_ms": None, "bound_ms": bound, "bound_by": by,
-            "CTAs": gx * gy * gz, "threads_per_CTA": plan["threads"],
+            "CTAs": gx * gy * gz, "cluster": plan["cluster"],
+            "threads_per_CTA": plan["threads"],
             "smem_bytes": plan["smem_bytes"],
             "workspace_bytes": plan["workspace_bytes"],
+            "kernel_ms": split or "not measured: the trace lost events",
+            "kernel_share": split and {
+                k_: v_ / sum(split.values()) for k_, v_ in split.items()},
             "cycles_per_token_at_max_clock":
                 kern * 1e-3 * sm_clock_max_hz() / s}
 
@@ -2540,17 +2607,49 @@ def kernel_build_report(build) -> dict:
                     "CTAs_at_B1_H40": plan["grid"][0] * plan["grid"][1]}
             report[key] = info
             say(f"[build] {key}: {json.dumps(info)}")
-            plan = wk.bwd_launch_plan(1, 40, LONG_PROMPT, n, dt)
-            for kern in ("wkv6_bwd_main", "wkv6_bwd_reduce"):
-                key = f"{kern}<{str(dt)[6:]},{n}>"
-                info = {**props(f"{kern}I{mangled}Li{n}E")}
-                if kern == "wkv6_bwd_main":
-                    info.update(threads=plan["threads"],
-                                dynamic_smem_bytes=plan["smem_bytes"],
-                                workspace_bytes_at_B1_H40_S4096=plan[
-                                    "workspace_bytes"])
-                report[key] = info
-                say(f"[build] {key}: {json.dumps(info)}")
+            report.update(_wkv6_bwd_build(lib, props, dt, mangled, n))
+    return report
+
+
+def _wkv6_bwd_build(lib, props, dt, mangled: str, n: int) -> dict:
+    """Registers and spills of ``wkv6_bwd``'s four kernels for (dt, n),
+    with each one's threads, dynamic shared memory, cluster size and, at
+    rwkv6-3b's launch (``WKV6_LAUNCH``), CTAs and warps a scheduler
+    (``wkv6_bwd_occupancy``: the runtime's count from registers, shared
+    memory and threads); fails if a kernel fits no CTA on an SM."""
+    import ctypes
+
+    from repro_torch.kernels.rwkv6 import ops as wk
+    plan = wk.bwd_launch_plan(1, 40, WKV6_LAUNCH[2], n, dt)
+    occ = (ctypes.c_int * 3)()
+    if lib.wkv6_bwd_occupancy(wk.DTYPES[dt], n, occ):
+        fail(f"wkv6_bwd_occupancy {dt} n={n} failed")
+    if not all(occ):
+        fail(f"wkv6_bwd {dt} n={n}: a kernel fits no CTA on an SM "
+             f"({list(occ)})")
+    tname = str(dt)[6:]
+    kernels = {
+        "wkv6_bwd_local": (f"I{mangled}Li{n}E", plan["threads"],
+                           plan["local_smem_bytes"], 1, occ[0]),
+        "wkv6_bwd_carry": (f"ILi{n}E", plan["carry_threads"], 0, 1, occ[1]),
+        "wkv6_bwd_chunk": (f"I{mangled}Li{n}E", plan["threads"],
+                           plan["smem_bytes"], plan["cluster"], occ[2]),
+        "wkv6_bwd_du": (f"ILi{n}E", n, 0, 1, None)}
+    report = {}
+    for kern, (suffix, threads, smem, cluster, ctas) in kernels.items():
+        key = f"{kern}<{tname},{n}>"
+        info = {**props(f"{kern}{suffix}"), "threads": threads,
+                "dynamic_smem_bytes": smem, "cluster": cluster}
+        if ctas is not None:
+            info.update(CTAs_per_SM=ctas,
+                        warps_per_scheduler=ctas * -(-threads // 32) / 4)
+        if kern == "wkv6_bwd_chunk":
+            info.update(CTAs_at_B1_H40_S4096=plan["grid"][0] * 40,
+                        CTAs_per_SM_by_smem=plan["ctas_per_sm_by_smem"],
+                        workspace_bytes_at_B1_H40_S4096=plan[
+                            "workspace_bytes"])
+        report[key] = info
+        say(f"[build] {key}: {json.dumps(info)}")
     return report
 
 
@@ -2740,6 +2839,7 @@ def main() -> None:
         say(f"[kernel] model kernels {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         wkv6_bwd = wkv6_bwd_phase()
+        bwd_split = wkv6_bwd_split()
         say(f"[kernel] wkv6_bwd: {json.dumps(wkv6_bwd)} "
             f"({time.perf_counter() - t0:.1f} s)")
 
@@ -2812,7 +2912,7 @@ def main() -> None:
     for r in rows:
         say(f"[time] {json.dumps(r)}")
     flash_rows, wkv_rows = model_kernel_timings()
-    bwd_row = wkv6_bwd_timing()
+    bwd_row = wkv6_bwd_timing(bwd_split)
     for r in flash_rows + wkv_rows + [bwd_row]:
         say(f"[time] {json.dumps(r)}")
     head = rows[0]

@@ -41,9 +41,12 @@
 // ((p0 + p4) + (p2 + p6)) + ((p1 + p5) + (p3 + p7)), and the outputs
 // stored as whole rows of the CTA's columns. Both layouts (BHSN and
 // BSHN) are read and written through the strides, with no transposes.
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -347,11 +350,12 @@ int smem_by_size(int N) {
 }
 
 // ---------------------------------------------------------------------------
-// The backward: wkv6_bwd. The TPU package has no Pallas backward (it
-// differentiates the jnp oracle with lax.scan); this is the gradient of
-// the forward above, for training on the card. With S_t the state after
-// token t (S_-1 = 0), G_t = dL/dS_t (G_{S-1} = 0), do_t = dL/do_t and
-// a_t = sum_m v_t[m] do_t[m], going backwards over t:
+// The backward: wkv6_bwd. The TPU package has no Pallas backward: it takes
+// the gradient of its `wkv6` (src/repro/kernels/rwkv6/kernel.py:78) by
+// jax.vjp through the jnp oracle (ref.wkv6_ref, a lax.scan). This is the
+// gradient of the forward above, for training on the card. With S_t the
+// state after token t (S_-1 = 0), G_t = dL/dS_t (G_{S-1} = 0), do_t =
+// dL/do_t and a_t = sum_m v_t[m] do_t[m], going backwards over t:
 //
 //   dr_t[n] = sum_m S_{t-1}[n][m] do_t[m]          + u[n] k_t[n] a_t
 //   dk_t[n] = sum_m G_t[n][m] v_t[m]               + r_t[n] u[n] a_t
@@ -360,360 +364,594 @@ int smem_by_size(int N) {
 //   du[n]   = sum_{b,t} r_t[n] k_t[n] a_t
 //   G_{t-1}[n][m] = w_t[n] G_t[n][m] + r_t[n] do_t[m]
 //
-// all in IEEE f32. Bound: like the forward, the chain of S tokens; the
-// backward walks it three times (states forward, then a chunk's states
-// again and the reverse walk), with ~3x the forward's work per token.
+// all in IEEE f32. Bound: operations (f32 FMAs, ~14 n^2 a token and head)
+// and shared memory: each token's partial sums (dr, dk, dw over a
+// thread's columns, dv over its rows) cross the CTA through it. A walk
+// over tokens is a chain, so the card fills only if many walks run at
+// once: a walk per (b, h) and column group over all S tokens gives 320
+// one-warp walks at rwkv6-3b's (1, 40, 4096, 64), fewer than the card's
+// 528 schedulers.
 //
-// Design: three kernels on one stream, no atomics, every sum in a fixed
-// order (a restart under deterministic algorithms is bitwise):
-//  1. wkv6_bwd_main, the forward's grid (N / kCols column groups, H, B) of
-//     one warp and its thread layout (a thread: kColsPerThread columns x
-//     N / kRowGroups rows of S, and of G, in registers). The columns m of
-//     S and of G are independent, so each CTA walks its own columns:
-//     first forward over the whole sequence, writing the state at each
-//     chunk's start to a workspace (its own slice; it reads it back
-//     itself); then over the chunks in reverse: the chunk's start state
-//     from the workspace, the states before each of its tokens into
-//     shared memory, and the reverse walk over them with G in registers.
-//     dv needs only the CTA's columns: the 8 row groups' partials are
-//     added with a xor butterfly over the lanes and stored. dr, dk and dw
-//     sum over all columns: a CTA adds its 4 column pairs (xor 8, 16) and
-//     stores the sum over its columns as one partial per column group
-//     (without the u a_t terms, which need all of a_t). Inputs arrive a
-//     chunk at a time by cp.async into two shared buffers, as in the
-//     forward.
-//  2. wkv6_bwd_reduce, grid (chunks, H, B) of N threads: a_t of each
-//     token from v and do (a sum over m in order), then dr, dk and dw as
-//     the column groups' partials added in order g = 0, 1, ... plus the
-//     u a_t terms, and each thread's partial of du over the chunk.
-//  3. wkv6_bwd_du, grid H of N threads: du as the sum of those partials
-//     in (b, chunk) order.
+// Design. The decay is diagonal, so a chunk c of kChunk tokens [t0, t1)
+// maps the state and G exactly:
+//   S_{t1-1} = D_c o S_{t0-1} + S_c^0,   G_{t0-1} = D_c o G_{t1-1} + G_c^0
+// with D_c[n] = prod_{t in c} w_t[n] scaling row n, and S_c^0, G_c^0 the
+// chunk's own walks from zero (products of w only: nothing is divided, so
+// nothing overflows). Four kernels on one stream, no atomics, every sum in
+// a fixed order (a restart under deterministic algorithms is bitwise):
+//  1. wkv6_bwd_local, grid (row groups x chunks, H, B): each chunk's D_c,
+//     and S_c^0 and G_c^0 at the CTA's rows as sums of products (k_t
+//     times the decay after t, r_t times the decay before it), into the
+//     workspace, with a_t and du's partial over the chunk (many small
+//     CTAs an SM hide these short serial sums).
+//  2. wkv6_bwd_carry, one thread per (b, h, row, 4 columns), serial in the
+//     chunk: S's walk forward and G's backward over the chunks, turning
+//     S_c^0 into chunk c's start state and G_c^0 into its end G, in place.
+//  3. wkv6_bwd_chunk, the same tiles: from its start state a CTA walks its
+//     chunk forward keeping the states before each kSub-token sub-chunk;
+//     then per sub-chunk, last first, it recomputes the sub-chunk's
+//     states into registers and walks back from the G the walk has
+//     reached (the chunk's end G first), writing the gradients.
+//  4. wkv6_bwd_du: du as the sum of the chunks' partials in (b, chunk)
+//     order.
+// The state is split by rows: a CTA holds kR rows (16, or n below 16) and
+// all n columns, so dr, dk, dw and a_t are complete inside it; only dv (a
+// sum over rows) crosses CTAs, and the n / kR row groups of a chunk form
+// a thread-block cluster that adds their dv in rank order through
+// distributed shared memory. A thread holds a 2 x 4 tile of S and of G,
+// and the states of its sub-chunk, in registers. Each token's partial
+// sums go to shared memory; after a sub-chunk the CTA adds them in
+// column-quad and row-pair order, so no token waits on a sum across
+// threads. Inputs arrive a chunk at a time by cp.async; both layouts are
+// read and written through the strides. At (1, 40, 4096, 64) that is
+// 20480 CTAs of 4 warps (4 row groups x 128 chunks x 40 heads), each
+// walking 32 tokens, and a workspace of 0.17 GB (the chunks' start
+// states and end Gs, 84 MB each).
 
-// One chunk buffer of the backward in shared memory, in bytes: r, k, w of
-// kChunk tokens (all N rows), v and do of kChunk tokens (this CTA's kCols
-// columns; do in f32).
-template <typename T, int N>
-struct BStage {
-  static constexpr int kR = 0;
-  static constexpr int kK = kR + kChunk * N * (int)sizeof(T);
-  static constexpr int kW = kK + kChunk * N * (int)sizeof(T);
-  static constexpr int kV = kW + kChunk * N * 4;
-  static constexpr int kD = kV + kChunk * kCols * (int)sizeof(T);
-  static constexpr int kBytes = kD + kChunk * kCols * 4;
+constexpr int kSub = 8;                      // tokens whose states are held
+constexpr int kSubs = kChunk / kSub;         // sub-chunks a chunk
+constexpr int kRT = 2;                       // state rows a thread
+constexpr int kCT = 4;                       // state columns a thread
+constexpr int kCarryThreads = 128;
+constexpr int kCarryBatch = 16;              // chunks loaded at once
+
+// The CTA tile of the backward for head size N.
+template <int N>
+struct BTile {
+  static constexpr int kR = N < 16 ? N : 16;          // rows per CTA
+  static constexpr int kGroups = N / kR;              // CTAs of a cluster
+  static constexpr int kRP = kR / kRT;                // row pairs
+  static constexpr int kCQ = N / kCT;                 // column quads
+  static constexpr int kTile = kRP * kCQ;             // threads holding state
+  static constexpr int kThreads = kTile < 32 ? 32 : kTile;
+  // a plane of a token's partials: one entry per thread, and one of
+  // padding after every 16, so that the sums over a row pair's column
+  // quads fall on different banks
+  static constexpr int kStride = kTile + kTile / 16;
 };
 
-// two chunk buffers, then the states before each token of a chunk: kChunk
-// x (N x kCols) f32, each token's as [column][row][thread] of the
-// threads' slices
-template <typename T, int N>
-constexpr int bwd_smem_bytes() {
-  return 2 * BStage<T, N>::kBytes + kChunk * N * kCols * 4;
-}
+__device__ __forceinline__ int slot_pos(int tid) { return tid + tid / 16; }
 
-// the workspace in floats: the chunk start states (B, H, G, chunks, N x
-// kCols), the partials of dr, dk, dw (3, G, B, H, S, N), and the partials
-// of du (B, chunks, H, N)
-__host__ __device__ inline long long bwd_ckpt_floats(int B, int H, int S,
-                                                     int N) {
+// The backward's shared memory in bytes: r, k (T) and w (f32) of kChunk
+// tokens at the CTA's rows, v (T) and do (f32) at all N columns, a_t;
+// then for the chunk kernel u at the CTA's rows and kSub tokens' partials
+// (dr, dk, dw: three planes of kStride float2; dv: one plane of kStride
+// float4), for the local kernel k and r times their tokens' decay
+// products (kChunk x kR f32 each).
+template <typename T, int N>
+struct BSmem {
+  using Tl = BTile<N>;
+  static constexpr int oR = 0;
+  static constexpr int oK = oR + kChunk * Tl::kR * (int)sizeof(T);
+  static constexpr int oW = oK + kChunk * Tl::kR * (int)sizeof(T);
+  static constexpr int oV = oW + kChunk * Tl::kR * 4;
+  static constexpr int oD = oV + kChunk * N * (int)sizeof(T);
+  static constexpr int oA = oD + kChunk * N * 4;
+  static constexpr int oU = oA + kChunk * 4;
+  static constexpr int oP2 = oU + Tl::kR * 4;
+  static constexpr int oP4 = oP2 + kSub * 3 * Tl::kStride * 8;
+  static constexpr int kBytes = oP4 + kSub * Tl::kStride * 16;
+  static constexpr int oKt = oU;
+  static constexpr int oRt = oKt + kChunk * Tl::kR * 4;
+  static constexpr int kLocal = oRt + kChunk * Tl::kR * 4;
+};
+
+// the workspace in floats: chunk start states and chunk end Gs (each
+// (B, H, chunks, N, N)), the chunks' decays (B, H, chunks, N), a_t (B, H,
+// chunks, kChunk), and the partials of du (B, chunks, H, N)
+__host__ __device__ inline long long bwd_state_floats(int B, int H, int S,
+                                                      int N) {
   const int nch = (S + kChunk - 1) / kChunk;
-  return (long long)B * H * (N / kCols) * nch * kCols * N;
+  return (long long)B * H * nch * N * N;
 }
-__host__ __device__ inline long long bwd_part_floats(int B, int H, int S,
-                                                     int N) {
-  return 3LL * (N / kCols) * B * H * S * N;
-}
-__host__ __device__ inline long long bwd_du_floats(int B, int H, int S,
-                                                   int N) {
+__host__ __device__ inline long long bwd_row_floats(int B, int H, int S,
+                                                    int N) {
   const int nch = (S + kChunk - 1) / kChunk;
-  return (long long)B * nch * H * N;
+  return (long long)B * H * nch * N;
+}
+__host__ __device__ inline long long bwd_token_floats(int B, int H, int S) {
+  const int nch = (S + kChunk - 1) / kChunk;
+  return (long long)B * H * nch * kChunk;
 }
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);    // round to nearest even, as torch's .to
+
+// values to consecutive elements (aligned to their count)
+__device__ __forceinline__ void store4(float* p, float4 x) {
+  *reinterpret_cast<float4*>(p) = x;
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 x) {
+  // round to nearest even, as torch's .to
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(x.x, x.y);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(x.z, x.w);
+  uint2 v;
+  v.x = *reinterpret_cast<const uint32_t*>(&lo);
+  v.y = *reinterpret_cast<const uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(p) = v;
+}
+__device__ __forceinline__ void store2(float* p, float2 x) {
+  *reinterpret_cast<float2*>(p) = x;
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float2 x) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x.x, x.y);
 }
 
-// Copy tokens [t0, t0 + nt) of r, k, w (whole rows) and of v and do
-// (columns [j0, j0 + kCols)) into the backward's stage at `buf`.
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+__device__ __forceinline__ float2 add2(float2 a, float2 b) {
+  return make_float2(a.x + b.x, a.y + b.y);
+}
+
+// Copy chunk [t0, t0 + nt) of r, k, w (rows [n0, n0 + kR)) and of v and
+// do (all N columns) into the backward's stage and, where given, the
+// chunk's a_t and u's rows (`ur`: u at row n0) after it.
 template <typename T, int N>
 __device__ __forceinline__ void bstage_in(
-    uint8_t* buf, const T* r, const T* k, const T* v, const float* w,
-    const float* dout, long long in0, long long is, int j0, int t0, int nt,
-    int tid) {
-  using St = BStage<T, N>;
-  constexpr int kRow = N * (int)sizeof(T) / 16;
-  constexpr int kWRow = N * 4 / 16;
-  constexpr int kVRow = kCols * (int)sizeof(T) / 16;
-  constexpr int kDRow = kCols * 4 / 16;
-  for (int p = tid; p < nt * kRow; p += kThreads) {
+    uint8_t* sm, const T* r, const T* k, const T* v, const float* w,
+    const float* dout, const float* a, const float* ur, long long in0,
+    long long is, int n0, int t0, int nt, int tid) {
+  using Tl = BTile<N>;
+  using Sm = BSmem<T, N>;
+  constexpr int kRow = Tl::kR * (int)sizeof(T) / 16;
+  constexpr int kWRow = Tl::kR * 4 / 16;
+  constexpr int kVRow = N * (int)sizeof(T) / 16;
+  constexpr int kDRow = N * 4 / 16;
+  for (int p = tid; p < nt * kRow; p += Tl::kThreads) {
     const int tt = p / kRow, c = p % kRow;
-    const long long g = in0 + (long long)(t0 + tt) * is;
-    cp_async16(buf + St::kR + tt * N * sizeof(T) + 16 * c,
+    const long long g = in0 + (long long)(t0 + tt) * is + n0;
+    cp_async16(sm + Sm::oR + tt * Tl::kR * sizeof(T) + 16 * c,
                reinterpret_cast<const uint8_t*>(r + g) + 16 * c);
-    cp_async16(buf + St::kK + tt * N * sizeof(T) + 16 * c,
+    cp_async16(sm + Sm::oK + tt * Tl::kR * sizeof(T) + 16 * c,
                reinterpret_cast<const uint8_t*>(k + g) + 16 * c);
   }
-  for (int p = tid; p < nt * kWRow; p += kThreads) {
+  for (int p = tid; p < nt * kWRow; p += Tl::kThreads) {
     const int tt = p / kWRow, c = p % kWRow;
-    const long long g = in0 + (long long)(t0 + tt) * is;
-    cp_async16(buf + St::kW + tt * N * 4 + 16 * c,
+    const long long g = in0 + (long long)(t0 + tt) * is + n0;
+    cp_async16(sm + Sm::oW + tt * Tl::kR * 4 + 16 * c,
                reinterpret_cast<const uint8_t*>(w + g) + 16 * c);
   }
-  for (int p = tid; p < nt * kVRow; p += kThreads) {
+  for (int p = tid; p < nt * kVRow; p += Tl::kThreads) {
     const int tt = p / kVRow, c = p % kVRow;
-    const long long g = in0 + (long long)(t0 + tt) * is + j0;
-    cp_async16(buf + St::kV + tt * kCols * sizeof(T) + 16 * c,
+    const long long g = in0 + (long long)(t0 + tt) * is;
+    cp_async16(sm + Sm::oV + tt * N * sizeof(T) + 16 * c,
                reinterpret_cast<const uint8_t*>(v + g) + 16 * c);
   }
-  for (int p = tid; p < nt * kDRow; p += kThreads) {
+  for (int p = tid; p < nt * kDRow; p += Tl::kThreads) {
     const int tt = p / kDRow, c = p % kDRow;
-    const long long g = in0 + (long long)(t0 + tt) * is + j0;
-    cp_async16(buf + St::kD + tt * kCols * 4 + 16 * c,
+    const long long g = in0 + (long long)(t0 + tt) * is;
+    cp_async16(sm + Sm::oD + tt * N * 4 + 16 * c,
                reinterpret_cast<const uint8_t*>(dout + g) + 16 * c);
   }
+  if (a != nullptr && tid < kChunk / 4)
+    cp_async16(sm + Sm::oA + 16 * tid, a + 4 * tid);
+  if (ur != nullptr && tid < Tl::kR / 4)
+    cp_async16(sm + Sm::oU + 16 * tid, ur + 4 * tid);
   cp_async_commit();
 }
 
+// One token's inputs at a thread's rows (r, k, w) and columns (v, do)
+struct TokenIn {
+  float r[kRT], k[kRT], w[kRT], v[kCT], d[kCT];
+};
+
+// k, w and v of token tt of the stage (what a step of S needs)
 template <typename T, int N>
-__global__ void __launch_bounds__(kThreads)
-wkv6_bwd_main(const T* __restrict__ r, const T* __restrict__ k,
-              const T* __restrict__ v, const float* __restrict__ w,
-              const float* __restrict__ u, const float* __restrict__ dout,
-              T* __restrict__ dv, float* __restrict__ ckpt,
-              float* __restrict__ part, int B, int H, int S, long long ib,
-              long long ih, long long is) {
-  constexpr int P = N / kRowGroups;            // rows per thread
-  constexpr int Q = kColsPerThread;
-  constexpr int G = N / kCols;                 // column groups
-  constexpr int kSlice = P * Q * kThreads;     // = N x kCols floats
-  static_assert(Q == 2, "a thread's columns are read as one pair");
-  using St = BStage<T, N>;
+__device__ __forceinline__ void step_in(TokenIn& x, const T* sk,
+                                        const float* sw, const T* sv,
+                                        int tt) {
+  load_rows<kRT>(sk + tt * BTile<N>::kR, x.k);
+  load_rows<kRT>(sw + tt * BTile<N>::kR, x.w);
+  load_rows<kCT>(sv + tt * N, x.v);
+}
+
+// S <- S o w + k v^T on a thread's tile
+__device__ __forceinline__ void state_step(float (&st)[kRT][kCT],
+                                           const TokenIn& x) {
+#pragma unroll
+  for (int i = 0; i < kRT; ++i)
+#pragma unroll
+    for (int j = 0; j < kCT; ++j)
+      st[i][j] = fmaf(st[i][j], x.w[i], x.k[i] * x.v[j]);
+}
+
+// a thread's tile of a (N x N) state in the workspace
+__device__ __forceinline__ void tile_load(const float* p, int N,
+                                          float (&x)[kRT][kCT]) {
+#pragma unroll
+  for (int i = 0; i < kRT; ++i) {
+    const float4 f = *reinterpret_cast<const float4*>(p + i * N);
+    x[i][0] = f.x; x[i][1] = f.y; x[i][2] = f.z; x[i][3] = f.w;
+  }
+}
+__device__ __forceinline__ void tile_store(float* p, int N,
+                                           float (&x)[kRT][kCT]) {
+#pragma unroll
+  for (int i = 0; i < kRT; ++i)
+    *reinterpret_cast<float4*>(p + i * N) =
+        make_float4(x[i][0], x[i][1], x[i][2], x[i][3]);
+}
+
+// 1. Each chunk's decay D_c, and its walks from zero: S_c^0 forward and
+// G_c^0 backward, at the CTA's rows, as sums of products (k_t times the
+// decay after t, r_t times the decay before it: one FMA an element and
+// token); a_t of the chunk's tokens (written by row group 0) and du's
+// partial over the chunk at the CTA's rows.
+template <typename T, int N>
+__global__ void __launch_bounds__(BTile<N>::kThreads)
+wkv6_bwd_local(const T* __restrict__ r, const T* __restrict__ k,
+               const T* __restrict__ v, const float* __restrict__ w,
+               const float* __restrict__ dout, float* __restrict__ ws_s,
+               float* __restrict__ ws_g, float* __restrict__ ws_d,
+               float* __restrict__ ws_a, float* __restrict__ du_part,
+               int H, int S, long long ib, long long ih, long long is) {
+  using Tl = BTile<N>;
+  using Sm = BSmem<T, N>;
   extern __shared__ __align__(16) uint8_t smem[];
-  float* states = reinterpret_cast<float*>(smem + 2 * St::kBytes);
   const int tid = threadIdx.x;
-  const int pair = tid / kRowGroups;           // column pair: lanes 8 apart
-  const int col = pair * Q;                    // first column in the CTA
-  const int rg = tid % kRowGroups;             // row group: rows rg*P + q
-  const int g = blockIdx.x;
-  const int j0 = g * kCols;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const long long in0 = b * ib + h * ih;
+  const int grp = blockIdx.x % Tl::kGroups, c = blockIdx.x / Tl::kGroups;
+  const int h = blockIdx.y, b = blockIdx.z;
   const int nch = (S + kChunk - 1) / kChunk;
-  float* my_ckpt =
-      ckpt + ((((long long)b * H + h) * G + g) * nch) * kSlice + tid;
-  const long long plane = (long long)G * B * H * S * N;
-  // this CTA's partials of dr (plane 0), dk (1) and dw (2) at token t,
-  // row n: part[q * plane + (((g * B + b) * H + h) * S + t) * N + n]
-  float* my_part = part + (((long long)g * B + b) * H + h) * S * N;
-
-  float uu[P], st[Q][P], gr[Q][P];
-#pragma unroll
-  for (int q = 0; q < P; ++q) {
-    uu[q] = u[h * N + rg * P + q];
-#pragma unroll
-    for (int e = 0; e < Q; ++e) st[e][q] = gr[e][q] = 0.f;
-  }
-
-  // 2 nch steps: chunks 0 .. nch-1 forward, then nch-1 .. 0 in reverse
-  const int steps = 2 * nch;
-  auto chunk_of = [nch](int i) { return i < nch ? i : 2 * nch - 1 - i; };
-  bstage_in<T, N>(smem, r, k, v, w, dout, in0, is, j0, 0, min(kChunk, S),
-                  tid);
-  for (int i = 0; i < steps; ++i) {
-    const uint8_t* buf = smem + (i & 1) * St::kBytes;
-    const int c = chunk_of(i);
-    const int t0 = c * kChunk;
-    const int nt = min(kChunk, S - t0);
-    cp_async_wait_all();
-    // step i's chunk is in `buf` for every thread, and every thread is
-    // done with step i - 1's buffer, which the next copy overwrites
-    __syncthreads();
-    if (i + 1 < steps) {
-      const int cn = chunk_of(i + 1);
-      bstage_in<T, N>(smem + ((i + 1) & 1) * St::kBytes, r, k, v, w, dout,
-                      in0, is, j0, cn * kChunk,
-                      min(kChunk, S - cn * kChunk), tid);
-    }
-    const T* sr = reinterpret_cast<const T*>(buf + St::kR) + rg * P;
-    const T* sk = reinterpret_cast<const T*>(buf + St::kK) + rg * P;
-    const float* sw = reinterpret_cast<const float*>(buf + St::kW) + rg * P;
-    const T* sv = reinterpret_cast<const T*>(buf + St::kV) + col;
-    const float* sd = reinterpret_cast<const float*>(buf + St::kD) + col;
-    float* ck = my_ckpt + (long long)c * kSlice;
-    if (i < nch) {
-      // forward: the state before chunk c, then through its tokens (the
-      // last chunk's end state is never read)
-#pragma unroll
-      for (int e = 0; e < Q; ++e)
-#pragma unroll
-        for (int q = 0; q < P; ++q)
-          ck[(e * P + q) * kThreads] = st[e][q];
-      if (c + 1 == nch) continue;
-      for (int tt = 0; tt < nt; ++tt) {
-        float kk[P], ww[P], vv[Q];
-        load_rows<P>(sk + tt * N, kk);
-        load_rows<P>(sw + tt * N, ww);
-        load_rows<Q>(sv + tt * kCols, vv);
-#pragma unroll
-        for (int e = 0; e < Q; ++e)
-#pragma unroll
-          for (int q = 0; q < P; ++q)
-            st[e][q] = fmaf(st[e][q], ww[q], kk[q] * vv[e]);
-      }
-      continue;
-    }
-    // reverse over chunk c: the states before each of its tokens
-#pragma unroll
-    for (int e = 0; e < Q; ++e)
-#pragma unroll
-      for (int q = 0; q < P; ++q) st[e][q] = ck[(e * P + q) * kThreads];
-    for (int tt = 0; tt < nt; ++tt) {
-      float kk[P], ww[P], vv[Q];
-      load_rows<P>(sk + tt * N, kk);
-      load_rows<P>(sw + tt * N, ww);
-      load_rows<Q>(sv + tt * kCols, vv);
-      float* sp = states + tt * kSlice + tid;
-#pragma unroll
-      for (int e = 0; e < Q; ++e)
-#pragma unroll
-        for (int q = 0; q < P; ++q) {
-          sp[(e * P + q) * kThreads] = st[e][q];
-          st[e][q] = fmaf(st[e][q], ww[q], kk[q] * vv[e]);
-        }
-    }
-    // (each thread reads back only the slots it wrote: no barrier)
-    for (int tt = nt - 1; tt >= 0; --tt) {
-      const long long t = t0 + tt;
-      float rr[P], kk[P], ww[P], vv[Q], dd[Q];
-      load_rows<P>(sr + tt * N, rr);
-      load_rows<P>(sk + tt * N, kk);
-      load_rows<P>(sw + tt * N, ww);
-      load_rows<Q>(sv + tt * kCols, vv);
-      load_rows<Q>(sd + tt * kCols, dd);
-      const float* sp = states + tt * kSlice + tid;
-      float ruk = 0.f;                         // this thread's rows
-#pragma unroll
-      for (int q = 0; q < P; ++q) ruk = fmaf(rr[q] * uu[q], kk[q], ruk);
-      float pr[P], pk[P], pw[P], pv[Q];
-#pragma unroll
-      for (int q = 0; q < P; ++q) pr[q] = pk[q] = pw[q] = 0.f;
-#pragma unroll
-      for (int e = 0; e < Q; ++e) {
-        pv[e] = ruk * dd[e];
-#pragma unroll
-        for (int q = 0; q < P; ++q) {
-          const float sprev = sp[(e * P + q) * kThreads];
-          const float gq = gr[e][q];
-          pr[q] = fmaf(sprev, dd[e], pr[q]);
-          pk[q] = fmaf(gq, vv[e], pk[q]);
-          pw[q] = fmaf(gq, sprev, pw[q]);
-          pv[e] = fmaf(kk[q], gq, pv[e]);
-          gr[e][q] = fmaf(ww[q], gq, rr[q] * dd[e]);
-        }
-      }
-      // dv: the 8 row groups of a column are lanes pair*8 .. pair*8 + 7
-#pragma unroll
-      for (int e = 0; e < Q; ++e)
-#pragma unroll
-        for (int off = 1; off < kRowGroups; off <<= 1)
-          pv[e] += __shfl_xor_sync(0xffffffffu, pv[e], off);
-      // dr, dk, dw over the CTA's columns: the pairs are lanes 8 apart
-#pragma unroll
-      for (int q = 0; q < P; ++q) {
-#pragma unroll
-        for (int off = kRowGroups; off < kThreads; off <<= 1) {
-          pr[q] += __shfl_xor_sync(0xffffffffu, pr[q], off);
-          pk[q] += __shfl_xor_sync(0xffffffffu, pk[q], off);
-          pw[q] += __shfl_xor_sync(0xffffffffu, pw[q], off);
-        }
-      }
-      if (rg == 0) {
-        T* dvp = dv + in0 + t * is + j0 + col;
-#pragma unroll
-        for (int e = 0; e < Q; ++e) dvp[e] = from_f32<T>(pv[e]);
-      }
-      // pair 0 stores dr's partial, 1 dk's, 2 dw's (each array indexed
-      // by constants only, so that it stays in registers)
-      float* dst = my_part + pair * plane + t * N + rg * P;
-      if (pair == 0) {
-#pragma unroll
-        for (int q = 0; q < P; ++q) dst[q] = pr[q];
-      } else if (pair == 1) {
-#pragma unroll
-        for (int q = 0; q < P; ++q) dst[q] = pk[q];
-      } else if (pair == 2) {
-#pragma unroll
-        for (int q = 0; q < P; ++q) dst[q] = pw[q];
-      }
-    }
-  }
-}
-
-template <typename T, int N>
-__global__ void __launch_bounds__(N)
-wkv6_bwd_reduce(const T* __restrict__ r, const T* __restrict__ k,
-                const T* __restrict__ v, const float* __restrict__ u,
-                const float* __restrict__ dout,
-                const float* __restrict__ part, T* __restrict__ dr,
-                T* __restrict__ dk, float* __restrict__ dw,
-                float* __restrict__ du_part, int B, int H, int S,
-                long long ib, long long ih, long long is) {
-  constexpr int G = N / kCols;
-  __shared__ float vd[kChunk][N];
-  __shared__ float a[kChunk];
-  const int n = threadIdx.x;
-  const int c = blockIdx.x;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int nch = gridDim.x;
-  const int t0 = c * kChunk;
-  const int nt = min(kChunk, S - t0);
-  const long long in0 = b * ib + h * ih + n;
-  for (int tt = 0; tt < nt; ++tt) {
-    const long long gi = in0 + (t0 + tt) * is;
-    vd[tt][n] = to_f32(v[gi]) * dout[gi];
-  }
+  const int t0 = c * kChunk, nt = min(kChunk, S - t0);
+  const int n0 = grp * Tl::kR;
+  const long long in0 = b * ib + h * ih;
+  bstage_in<T, N>(smem, r, k, v, w, dout, nullptr, nullptr, in0, is, n0,
+                  t0, nt, tid);
+  cp_async_wait_all();
   __syncthreads();
-  for (int tt = n; tt < nt; tt += N) {
-    float s = 0.f;
+  const T* sr_all = reinterpret_cast<const T*>(smem + Sm::oR);
+  const T* sk_all = reinterpret_cast<const T*>(smem + Sm::oK);
+  const T* sv_all = reinterpret_cast<const T*>(smem + Sm::oV);
+  const float* sd_all = reinterpret_cast<const float*>(smem + Sm::oD);
+  const float* sw_all = reinterpret_cast<const float*>(smem + Sm::oW);
+  float* sa = reinterpret_cast<float*>(smem + Sm::oA);
+  float* skt = reinterpret_cast<float*>(smem + Sm::oKt);
+  float* srt = reinterpret_cast<float*>(smem + Sm::oRt);
+  // a_t: a thread of the last warp per token, over the columns from
+  // column t on (so that the threads of a warp read different banks), in
+  // that order
+  const int ta = tid - (Tl::kThreads - 32);
+  if (ta >= 0 && ta < nt) {
+    float p = 0.f;
 #pragma unroll 8
-    for (int m = 0; m < N; ++m) s += vd[tt][m];
-    a[tt] = s;
+    for (int j = 0; j < N; ++j) {
+      const int m = (j + ta) & (N - 1);
+      p = fmaf(to_f32(sv_all[ta * N + m]), sd_all[ta * N + m], p);
+    }
+    sa[ta] = p;
+    if (grp == 0)
+      ws_a[(((long long)b * H + h) * nch + c) * kChunk + ta] = p;
+  }
+  // per row: k_t times the decay after t (the chunk's decay D_c when t
+  // runs past the start), r_t times the decay before t
+  if (tid < Tl::kR) {
+    float p = 1.f;
+    for (int tt = nt - 1; tt >= 0; --tt) {
+      skt[tt * Tl::kR + tid] = to_f32(sk_all[tt * Tl::kR + tid]) * p;
+      p *= sw_all[tt * Tl::kR + tid];
+    }
+    ws_d[(((long long)b * H + h) * nch + c) * N + n0 + tid] = p;
+    p = 1.f;
+    for (int tt = 0; tt < nt; ++tt) {
+      srt[tt * Tl::kR + tid] = to_f32(sr_all[tt * Tl::kR + tid]) * p;
+      p *= sw_all[tt * Tl::kR + tid];
+    }
   }
   __syncthreads();
-  const float un = u[h * N + n];
-  const long long plane = (long long)G * B * H * S * N;
-  const long long gstride = (long long)B * H * S * N;
-  float acc = 0.f;
-  for (int tt = 0; tt < nt; ++tt) {
-    const long long t = t0 + tt;
-    const long long gi = in0 + t * is;
-    const long long pi = (((long long)b * H + h) * S + t) * N + n;
-    const float rn = to_f32(r[gi]), kn = to_f32(k[gi]), at = a[tt];
-    float sr = 0.f, sk = 0.f, sw = 0.f;
+  // du's partial over the chunk, per row of the CTA: tokens t = 4i + e
+  // into four sums e, added as (0 + 1) + (2 + 3)
+  if (tid < Tl::kR) {
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int t4 = 0; t4 < nt; t4 += 4) {
 #pragma unroll
-    for (int gg = 0; gg < G; ++gg) {
-      sr += part[pi + gg * gstride];
-      sk += part[plane + pi + gg * gstride];
-      sw += part[2 * plane + pi + gg * gstride];
+      for (int e = 0; e < 4; ++e) {
+        const int tt = t4 + e;
+        if (tt < nt)
+          acc[e] = fmaf(to_f32(sr_all[tt * Tl::kR + tid]) *
+                            to_f32(sk_all[tt * Tl::kR + tid]),
+                        sa[tt], acc[e]);
+      }
     }
-    dr[gi] = from_f32<T>(fmaf(un * kn, at, sr));
-    dk[gi] = from_f32<T>(fmaf(rn * un, at, sk));
-    dw[gi] = sw;
-    acc = fmaf(rn * kn, at, acc);
+    du_part[(((long long)b * nch + c) * H + h) * N + n0 + tid] =
+        (acc[0] + acc[1]) + (acc[2] + acc[3]);
   }
-  du_part[(((long long)b * nch + c) * H + h) * N + n] = acc;
+  // S_c^0 = sum_t (k_t o decay after t) v_t^T and G_c^0 = sum_t (r_t o
+  // decay before t) do_t^T, in token order: the walks from zero unrolled
+  if (tid < Tl::kTile) {
+    const int rl = tid / Tl::kCQ * kRT, col = tid % Tl::kCQ * kCT;
+    const T* sv = sv_all + col;
+    const float* sd = sd_all + col;
+    float st[kRT][kCT], gr[kRT][kCT];
+#pragma unroll
+    for (int i = 0; i < kRT; ++i)
+#pragma unroll
+      for (int j = 0; j < kCT; ++j) st[i][j] = gr[i][j] = 0.f;
+#pragma unroll 4
+    for (int tt = 0; tt < nt; ++tt) {
+      float kt[kRT], rt[kRT], vv[kCT], dd[kCT];
+      load_rows<kRT>(skt + tt * Tl::kR + rl, kt);
+      load_rows<kRT>(srt + tt * Tl::kR + rl, rt);
+      load_rows<kCT>(sv + tt * N, vv);
+      load_rows<kCT>(sd + tt * N, dd);
+#pragma unroll
+      for (int i = 0; i < kRT; ++i)
+#pragma unroll
+        for (int j = 0; j < kCT; ++j) {
+          st[i][j] = fmaf(kt[i], vv[j], st[i][j]);
+          gr[i][j] = fmaf(rt[i], dd[j], gr[i][j]);
+        }
+    }
+    const long long tile = (((long long)b * H + h) * nch + c) * N * N +
+                           (long long)(n0 + rl) * N + col;
+    tile_store(ws_s + tile, N, st);
+    tile_store(ws_g + tile, N, gr);
+  }
 }
 
+// 2. The carry, in place: chunk c's S_c^0 becomes its start state (S's
+// walk forward, grid y = 0) and its G_c^0 its end G (G's walk backward,
+// grid y = 1), run <- D_c o run + x. A thread owns 4 columns of one row of
+// one (b, h) and walks the chunks in order, issuing kCarryBatch chunks'
+// loads before their sums.
+template <int N>
+__global__ void __launch_bounds__(kCarryThreads)
+wkv6_bwd_carry(float* __restrict__ ws_s, float* __restrict__ ws_g,
+               const float* __restrict__ ws_d, int BH, int nch) {
+  constexpr int kQ = N * N / 4;                // float4 of a state
+  const long long i = (long long)blockIdx.x * kCarryThreads + threadIdx.x;
+  if (i >= (long long)BH * kQ) return;
+  const int bh = (int)(i / kQ), e = (int)(i % kQ), n = e / (N / 4);
+  const bool fwd = blockIdx.y == 0;
+  float4* x = reinterpret_cast<float4*>(fwd ? ws_s : ws_g) +
+              (long long)bh * nch * kQ + e;
+  const float* dec = ws_d + (long long)bh * nch * N + n;
+  float4 run = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int c0 = 0; c0 < nch; c0 += kCarryBatch) {
+    const int cnt = min(kCarryBatch, nch - c0);
+    float4 xs[kCarryBatch];
+    float ds[kCarryBatch];
+#pragma unroll
+    for (int q = 0; q < kCarryBatch; ++q) {
+      if (q < cnt) {
+        const int c = fwd ? c0 + q : nch - 1 - c0 - q;
+        xs[q] = x[(long long)c * kQ];
+        ds[q] = dec[(long long)c * N];
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < kCarryBatch; ++q) {
+      if (q < cnt) {
+        const int c = fwd ? c0 + q : nch - 1 - c0 - q;
+        x[(long long)c * kQ] = run;
+        run = make_float4(fmaf(ds[q], run.x, xs[q].x),
+                          fmaf(ds[q], run.y, xs[q].y),
+                          fmaf(ds[q], run.z, xs[q].z),
+                          fmaf(ds[q], run.w, xs[q].w));
+      }
+    }
+  }
+}
+
+// 3. The gradients of one chunk at the CTA's rows (see the note above).
+template <typename T, int N>
+__global__ void __launch_bounds__(BTile<N>::kThreads)
+wkv6_bwd_chunk(const T* __restrict__ r, const T* __restrict__ k,
+               const T* __restrict__ v, const float* __restrict__ w,
+               const float* __restrict__ u, const float* __restrict__ dout,
+               T* __restrict__ dr, T* __restrict__ dk, T* __restrict__ dv,
+               float* __restrict__ dw, const float* __restrict__ ws_s,
+               const float* __restrict__ ws_g,
+               const float* __restrict__ ws_a, int H, int S, long long ib,
+               long long ih, long long is) {
+  using Tl = BTile<N>;
+  using Sm = BSmem<T, N>;
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int tid = threadIdx.x;
+  const int grp = blockIdx.x % Tl::kGroups, c = blockIdx.x / Tl::kGroups;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int nch = (S + kChunk - 1) / kChunk;
+  const int t0 = c * kChunk, nt = min(kChunk, S - t0);
+  const int n0 = grp * Tl::kR;
+  const long long in0 = b * ib + h * ih;
+  bstage_in<T, N>(smem, r, k, v, w, dout,
+                  ws_a + (((long long)b * H + h) * nch + c) * kChunk,
+                  u + h * N + n0, in0, is, n0, t0, nt, tid);
+  const T* sr_all = reinterpret_cast<const T*>(smem + Sm::oR);
+  const T* sk_all = reinterpret_cast<const T*>(smem + Sm::oK);
+  // do, and each token's dv partial of the CTA once the token is done
+  float* sd_all = reinterpret_cast<float*>(smem + Sm::oD);
+  const float* sa = reinterpret_cast<const float*>(smem + Sm::oA);
+  float2* part2 = reinterpret_cast<float2*>(smem + Sm::oP2);
+  float4* part4 = reinterpret_cast<float4*>(smem + Sm::oP4);
+  const bool act = tid < Tl::kTile;
+  const int rl = act ? tid / Tl::kCQ * kRT : 0;
+  const int col = act ? tid % Tl::kCQ * kCT : 0;
+  const long long tile = (((long long)b * H + h) * nch + c) * N * N +
+                         (long long)(n0 + rl) * N + col;
+  // the start state and the end G come in while the stage does
+  float uu[kRT], cp[kSubs][kRT][kCT], gr[kRT][kCT];
+  tile_load(ws_s + tile, N, cp[0]);
+  tile_load(ws_g + tile, N, gr);
+  load_rows<kRT>(u + h * N + n0 + rl, uu);
+  cp_async_wait_all();
+  __syncthreads();
+  const T* sr = sr_all + rl;
+  const T* sk = sk_all + rl;
+  const float* sw = reinterpret_cast<const float*>(smem + Sm::oW) + rl;
+  const T* sv = reinterpret_cast<const T*>(smem + Sm::oV) + col;
+  const float* sd = sd_all + col;
+  const int nsub = (nt + kSub - 1) / kSub;
+  // the states before each sub-chunk, from the chunk's start state
+  if (act) {
+#pragma unroll
+    for (int j = 1; j < kSubs; ++j) {
+      if (j < nsub) {
+#pragma unroll
+        for (int i = 0; i < kRT; ++i)
+#pragma unroll
+          for (int q = 0; q < kCT; ++q) cp[j][i][q] = cp[j - 1][i][q];
+#pragma unroll
+        for (int s = 0; s < kSub; ++s) {
+          TokenIn x;
+          step_in<T, N>(x, sk, sw, sv, (j - 1) * kSub + s);
+          state_step(cp[j], x);
+        }
+      }
+    }
+  }
+  const int my = slot_pos(tid);
+#pragma unroll
+  for (int j = kSubs - 1; j >= 0; --j) {
+    if (j >= nsub) continue;
+    const int tlo = j * kSub, ns = min(kSub, nt - tlo);
+    if (act) {
+      // the states before each token of the sub-chunk, in registers
+      float hist[kSub][kRT][kCT];
+#pragma unroll
+      for (int i = 0; i < kRT; ++i)
+#pragma unroll
+        for (int q = 0; q < kCT; ++q) hist[0][i][q] = cp[j][i][q];
+#pragma unroll
+      for (int s = 1; s < kSub; ++s) {
+        if (s < ns) {
+#pragma unroll
+          for (int i = 0; i < kRT; ++i)
+#pragma unroll
+            for (int q = 0; q < kCT; ++q) hist[s][i][q] = hist[s - 1][i][q];
+          TokenIn x;
+          step_in<T, N>(x, sk, sw, sv, tlo + s - 1);
+          state_step(hist[s], x);
+        }
+      }
+      // the reverse walk from the G reached; token s's partials to its
+      // slot
+#pragma unroll
+      for (int s = kSub - 1; s >= 0; --s) {
+        if (s < ns) {
+          const int tt = tlo + s;
+          TokenIn x;
+          step_in<T, N>(x, sk, sw, sv, tt);
+          load_rows<kRT>(sr + tt * Tl::kR, x.r);
+          load_rows<kCT>(sd + tt * N, x.d);
+          float ruk = 0.f;                     // this thread's rows
+#pragma unroll
+          for (int i = 0; i < kRT; ++i)
+            ruk = fmaf(x.r[i] * uu[i], x.k[i], ruk);
+          float pr[kRT], pk[kRT], pw[kRT], pv[kCT];
+#pragma unroll
+          for (int q = 0; q < kCT; ++q) pv[q] = ruk * x.d[q];
+#pragma unroll
+          for (int i = 0; i < kRT; ++i) {
+            pr[i] = pk[i] = pw[i] = 0.f;
+#pragma unroll
+            for (int q = 0; q < kCT; ++q) {
+              const float g = gr[i][q], sp = hist[s][i][q];
+              pr[i] = fmaf(sp, x.d[q], pr[i]);
+              pk[i] = fmaf(g, x.v[q], pk[i]);
+              pw[i] = fmaf(g, sp, pw[i]);
+              pv[q] = fmaf(x.k[i], g, pv[q]);
+              gr[i][q] = fmaf(x.w[i], g, x.r[i] * x.d[q]);
+            }
+          }
+          float2* p2 = part2 + s * 3 * Tl::kStride + my;
+          p2[0] = make_float2(pr[0], pr[1]);
+          p2[Tl::kStride] = make_float2(pk[0], pk[1]);
+          p2[2 * Tl::kStride] = make_float2(pw[0], pw[1]);
+          part4[s * Tl::kStride + my] = make_float4(pv[0], pv[1], pv[2],
+                                                    pv[3]);
+        }
+      }
+    }
+    __syncthreads();                           // the sub-chunk's partials
+    // dr, dk, dw of 2 rows and a token: the row pair's column quads in
+    // order, then the u a_t terms
+    for (int x = tid; x < ns * Tl::kRP * 3; x += Tl::kThreads) {
+      const int rp = x % Tl::kRP, q = x / Tl::kRP % 3;
+      const int s = x / (Tl::kRP * 3);
+      const float2* p = part2 + (s * 3 + q) * Tl::kStride;
+      float2 acc = p[slot_pos(rp * Tl::kCQ)];
+#pragma unroll
+      for (int cq = 1; cq < Tl::kCQ; ++cq)
+        acc = add2(acc, p[slot_pos(rp * Tl::kCQ + cq)]);
+      const int tt = tlo + s, nl = rp * kRT;
+      const long long gi = in0 + (long long)(t0 + tt) * is + n0 + nl;
+      if (q == 2) {
+        store2(dw + gi, acc);
+        continue;
+      }
+      float un[kRT], xn[kRT];
+      load_rows<kRT>(reinterpret_cast<const float*>(smem + Sm::oU) + nl, un);
+      // dr: u k a_t; dk: r u a_t
+      load_rows<kRT>((q == 0 ? sk_all : sr_all) + tt * Tl::kR + nl, xn);
+      const float at = sa[tt];
+      acc = make_float2(fmaf(un[0] * xn[0], at, acc.x),
+                        fmaf(un[1] * xn[1], at, acc.y));
+      store2((q == 0 ? dr : dk) + gi, acc);
+    }
+    // the CTA's dv of 4 columns and a token: its row pairs in order,
+    // into the token's do (no longer read)
+    for (int x = tid; x < ns * Tl::kCQ; x += Tl::kThreads) {
+      const int s = x / Tl::kCQ, cq = x % Tl::kCQ;
+      const float4* p = part4 + s * Tl::kStride;
+      float4 acc = p[slot_pos(cq)];
+#pragma unroll
+      for (int rp = 1; rp < Tl::kRP; ++rp)
+        acc = add4(acc, p[slot_pos(rp * Tl::kCQ + cq)]);
+      store4(sd_all + (tlo + s) * N + cq * kCT, acc);
+    }
+    __syncthreads();                           // the slots are free again
+  }
+  // dv: the cluster's row groups in rank order, each CTA N / kGroups of
+  // the columns
+  constexpr int kDvCols = N / Tl::kGroups;
+  constexpr int kDvQuads = kDvCols / 4;
+  if constexpr (Tl::kGroups > 1) {
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster.sync();                            // every CTA's dv is written
+    for (int x = tid; x < nt * kDvQuads; x += Tl::kThreads) {
+      const int s = x / kDvQuads, cc = grp * kDvCols + x % kDvQuads * 4;
+      float4 acc = *reinterpret_cast<const float4*>(
+          cluster.map_shared_rank(sd_all + s * N + cc, 0));
+#pragma unroll
+      for (int g = 1; g < Tl::kGroups; ++g)
+        acc = add4(acc, *reinterpret_cast<const float4*>(
+                            cluster.map_shared_rank(sd_all + s * N + cc, g)));
+      store4(dv + in0 + (long long)(t0 + s) * is + cc, acc);
+    }
+    cluster.sync();                            // no CTA leaves while read
+  } else {
+    for (int x = tid; x < nt * kDvQuads; x += Tl::kThreads) {
+      const int s = x / kDvQuads, cc = x % kDvQuads * 4;
+      store4(dv + in0 + (long long)(t0 + s) * is + cc,
+             *reinterpret_cast<const float4*>(sd_all + s * N + cc));
+    }
+  }
+}
+
+// 4. du as the sum of the chunks' partials in (b, chunk) order.
 template <int N>
 __global__ void __launch_bounds__(N)
 wkv6_bwd_du(const float* __restrict__ du_part, float* __restrict__ du,
@@ -732,27 +970,54 @@ cudaError_t launch_bwd(const void* r, const void* k, const void* v,
                        void* dr, void* dk, void* dv, void* dw, void* du,
                        void* ws, int B, int H, int S, long long ib,
                        long long ih, long long is, cudaStream_t stream) {
-  constexpr int smem = bwd_smem_bytes<T, N>();
+  using Tl = BTile<N>;
+  using Sm = BSmem<T, N>;
   cudaError_t e = cudaFuncSetAttribute(
-      wkv6_bwd_main<T, N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      wkv6_bwd_chunk<T, N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      Sm::kBytes);
   if (e != cudaSuccess) return e;
   const int nch = (S + kChunk - 1) / kChunk;
-  float* ckpt = static_cast<float*>(ws);
-  float* part = ckpt + bwd_ckpt_floats(B, H, S, N);
-  float* du_part = part + bwd_part_floats(B, H, S, N);
+  float* ws_s = static_cast<float*>(ws);
+  float* ws_g = ws_s + bwd_state_floats(B, H, S, N);
+  float* ws_d = ws_g + bwd_state_floats(B, H, S, N);
+  float* ws_a = ws_d + bwd_row_floats(B, H, S, N);
+  float* du_part = ws_a + bwd_token_floats(B, H, S);
   const T* rt = static_cast<const T*>(r);
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
-  const float* ut = static_cast<const float*>(u);
+  const float* wt = static_cast<const float*>(w);
   const float* dt = static_cast<const float*>(dout);
-  wkv6_bwd_main<T, N><<<dim3(N / kCols, H, B), kThreads, smem, stream>>>(
-      rt, kt, vt, static_cast<const float*>(w), ut, dt, static_cast<T*>(dv),
-      ckpt, part, B, H, S, ib, ih, is);
+  const dim3 grid(Tl::kGroups * nch, H, B);
+  wkv6_bwd_local<T, N><<<grid, Tl::kThreads, Sm::kLocal, stream>>>(
+      rt, kt, vt, wt, dt, ws_s, ws_g, ws_d, ws_a, du_part, H, S, ib, ih,
+      is);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  wkv6_bwd_reduce<T, N><<<dim3(nch, H, B), N, 0, stream>>>(
-      rt, kt, vt, ut, dt, part, static_cast<T*>(dr), static_cast<T*>(dk),
-      static_cast<float*>(dw), du_part, B, H, S, ib, ih, is);
+  const long long quads = (long long)B * H * N * N / 4;
+  wkv6_bwd_carry<N><<<dim3((unsigned)((quads + kCarryThreads - 1) /
+                                      kCarryThreads), 2),
+                      kCarryThreads, 0, stream>>>(ws_s, ws_g, ws_d, B * H,
+                                                  nch);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(Tl::kThreads);
+  cfg.dynamicSmemBytes = Sm::kBytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned int)Tl::kGroups;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = Tl::kGroups > 1 ? 1 : 0;
+  e = cudaLaunchKernelEx(&cfg, wkv6_bwd_chunk<T, N>, rt, kt, vt, wt,
+                         static_cast<const float*>(u), dt,
+                         static_cast<T*>(dr), static_cast<T*>(dk),
+                         static_cast<T*>(dv), static_cast<float*>(dw),
+                         static_cast<const float*>(ws_s),
+                         static_cast<const float*>(ws_g),
+                         static_cast<const float*>(ws_a), H, S, ib, ih, is);
+  if (e != cudaSuccess) return e;
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
   wkv6_bwd_du<N><<<H, N, 0, stream>>>(du_part, static_cast<float*>(du), B,
                                       H, nch);
@@ -783,14 +1048,54 @@ cudaError_t bwd_by_size(int N, const void* r, const void* k, const void* v,
   }
 }
 
+// {chunk kernel's dynamic shared memory, local kernel's, threads a CTA,
+// CTAs a cluster} for (T, N)
+template <typename T, int N>
+void bwd_shape(int* out) {
+  out[0] = BSmem<T, N>::kBytes;
+  out[1] = BSmem<T, N>::kLocal;
+  out[2] = BTile<N>::kThreads;
+  out[3] = BTile<N>::kGroups;
+}
+
 template <typename T>
-int bwd_smem_by_size(int N) {
+int bwd_shape_by_size(int N, int* out) {
   switch (N) {
-    case 8: return bwd_smem_bytes<T, 8>();
-    case 16: return bwd_smem_bytes<T, 16>();
-    case 32: return bwd_smem_bytes<T, 32>();
-    case 64: return bwd_smem_bytes<T, 64>();
+    case 8: bwd_shape<T, 8>(out); return 0;
+    case 16: bwd_shape<T, 16>(out); return 0;
+    case 32: bwd_shape<T, 32>(out); return 0;
+    case 64: bwd_shape<T, 64>(out); return 0;
     default: return -1;
+  }
+}
+
+// CTAs an SM holds of the local, carry and chunk kernels for (T, N), as
+// the runtime reckons them from registers, shared memory and threads
+template <typename T, int N>
+cudaError_t bwd_occupancy(int* out) {
+  using Sm = BSmem<T, N>;
+  cudaError_t e = cudaFuncSetAttribute(
+      wkv6_bwd_chunk<T, N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      Sm::kBytes);
+  if (e != cudaSuccess) return e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &out[0], wkv6_bwd_local<T, N>, BTile<N>::kThreads, Sm::kLocal);
+  if (e != cudaSuccess) return e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &out[1], wkv6_bwd_carry<N>, kCarryThreads, 0);
+  if (e != cudaSuccess) return e;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &out[2], wkv6_bwd_chunk<T, N>, BTile<N>::kThreads, Sm::kBytes);
+}
+
+template <typename T>
+cudaError_t bwd_occupancy_by_size(int N, int* out) {
+  switch (N) {
+    case 8: return bwd_occupancy<T, 8>(out);
+    case 16: return bwd_occupancy<T, 16>(out);
+    case 32: return bwd_occupancy<T, 32>(out);
+    case 64: return bwd_occupancy<T, 64>(out);
+    default: return cudaErrorInvalidValue;
   }
 }
 
@@ -840,7 +1145,7 @@ extern "C" int wkv6_plan(int dtype, int B, int H, int N, int* out) {
 // are the outputs dr, dk, dv (r's dtype) and dw (float32); u: (H, N) and
 // du (H, N) float32, contiguous; ws: the workspace of wkv6_bwd_plan's
 // bytes, 16-byte aligned. The last dimension contiguous everywhere, every
-// pointer and every stride in bytes a multiple of 16. Launches three
+// pointer and every stride in bytes a multiple of 16. Launches four
 // kernels on `stream` and returns the first launch error.
 extern "C" int wkv6_bwd(const void* r, const void* k, const void* v,
                         const void* w, const void* u, const void* dout,
@@ -864,22 +1169,42 @@ extern "C" int wkv6_bwd(const void* r, const void* k, const void* v,
   }
 }
 
-// The launches wkv6_bwd makes for (dtype, B, H, S, N): out = {main grid x,
-// y, z, threads, dynamic shared memory in bytes, reduce grid x (chunks),
-// reduce threads, du grid, workspace bytes (as two ints: low 31 bits,
-// then the rest)}. Returns a CUDA error code.
+// The launches wkv6_bwd makes for (dtype, B, H, S, N): out = {local and
+// chunk kernels' grid x (row groups x chunks), y (H), z (B), CTAs a
+// cluster (row groups), threads a CTA, the chunk kernel's dynamic shared
+// memory in bytes, the local kernel's, the carry's grid x (its y is 2)
+// and threads, the du kernel's grid, workspace bytes (as two ints: low 31
+// bits, then the rest)}. Returns a CUDA error code.
 extern "C" int wkv6_bwd_plan(int dtype, int B, int H, int S, int N,
                              int* out) {
-  const int smem = dtype == 0   ? bwd_smem_by_size<float>(N)
-                   : dtype == 1 ? bwd_smem_by_size<__nv_bfloat16>(N)
-                                : -1;
-  if (smem < 0 || S <= 0) return (int)cudaErrorInvalidValue;
-  const long long ws = 4 * (bwd_ckpt_floats(B, H, S, N) +
-                            bwd_part_floats(B, H, S, N) +
-                            bwd_du_floats(B, H, S, N));
-  const int plan[10] = {N / kCols, H, B, kThreads, smem,
-                        (S + kChunk - 1) / kChunk, N, H,
-                        (int)(ws & 0x7fffffff), (int)(ws >> 31)};
-  for (int i = 0; i < 10; ++i) out[i] = plan[i];
+  int shape[4];
+  const int rc = dtype == 0   ? bwd_shape_by_size<float>(N, shape)
+                 : dtype == 1 ? bwd_shape_by_size<__nv_bfloat16>(N, shape)
+                              : -1;
+  if (rc < 0 || B <= 0 || H <= 0 || S <= 0)
+    return (int)cudaErrorInvalidValue;
+  const int nch = (S + kChunk - 1) / kChunk;
+  const long long ws = 4 * (2 * bwd_state_floats(B, H, S, N) +
+                            2 * bwd_row_floats(B, H, S, N) +
+                            bwd_token_floats(B, H, S));
+  const long long quads = (long long)B * H * N * N / 4;
+  const int plan[12] = {shape[3] * nch, H, B, shape[3], shape[2], shape[0],
+                        shape[1],
+                        (int)((quads + kCarryThreads - 1) / kCarryThreads),
+                        kCarryThreads, H, (int)(ws & 0x7fffffff),
+                        (int)(ws >> 31)};
+  for (int i = 0; i < 12; ++i) out[i] = plan[i];
   return 0;
+}
+
+// CTAs an SM holds of wkv6_bwd's local, carry and chunk kernels for
+// (dtype, N), as the runtime reckons them from each kernel's registers,
+// shared memory and threads: out = {local, carry, chunk}. Returns a CUDA
+// error code.
+extern "C" int wkv6_bwd_occupancy(int dtype, int N, int* out) {
+  switch (dtype) {
+    case 0: return (int)bwd_occupancy_by_size<float>(N, out);
+    case 1: return (int)bwd_occupancy_by_size<__nv_bfloat16>(N, out);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -134,5 +134,7 @@ def load() -> ctypes.CDLL:
             lib.wkv6_bwd.restype = ctypes.c_int
             lib.wkv6_bwd_plan.argtypes = [i] * 5 + [ctypes.POINTER(i)]
             lib.wkv6_bwd_plan.restype = ctypes.c_int
+            lib.wkv6_bwd_occupancy.argtypes = [i, i, ctypes.POINTER(i)]
+            lib.wkv6_bwd_occupancy.restype = ctypes.c_int
             _lib = lib
         return _lib

@@ -3,7 +3,7 @@
 A tensor on the CPU goes to the plain version in ``ref``; a tensor on the
 card launches the kernel, and anything else raises. There is no fallback
 from one to the other. ``LAUNCHES`` counts forward kernel launches and
-``BWD_LAUNCHES`` backward ones (``wkv6_bwd``: one call, three kernels on
+``BWD_LAUNCHES`` backward ones (``wkv6_bwd``: one call, four kernels on
 the stream), so a run can show that its path went through them.
 
 Autograd: on the CPU it runs through the plain version. On the card
@@ -27,6 +27,10 @@ COLS = 8                         # state columns per CTA
 COLS_PER_THREAD = 2              # columns a thread carries
 ROW_GROUPS = 8                   # threads per column, n / 8 rows each
 CHUNK = 32                       # tokens staged in shared memory at a time
+SUB = 8                          # tokens whose states wkv6_bwd holds at once
+TILE_ROWS, TILE_COLS = 2, 4      # wkv6_bwd: a thread's tile of S and G
+CARRY_THREADS = 128              # wkv6_bwd's carry kernel
+SM_SMEM = 233472                 # bytes of shared memory an H100 SM holds
 LAUNCHES = 0
 BWD_LAUNCHES = 0
 
@@ -99,32 +103,57 @@ def _launch(r, k, v, w, u, heads: int) -> torch.Tensor:
 
 def bwd_launch_plan(b: int, h: int, s: int, n: int, dtype: torch.dtype
                     ) -> dict:
-    """The launches ``wkv6_bwd`` makes: ``grid``/``threads`` of the main
-    kernel (the forward's), its ``smem_bytes`` (two chunk buffers of r,
-    k, w at all n rows and v, do at the CTA's columns, and the f32 states
-    before each token of a chunk at the CTA's columns), the reduce
-    kernel's grid ``(chunks, h, b)`` of n threads, the du kernel's grid
-    of h CTAs, and the f32 workspace the wrapper allocates: the chunks'
-    start states, the column groups' partials of dr, dk and dw, and the
-    partials of du (``workspace_floats``, by part)."""
+    """The launches ``wkv6_bwd`` makes, in stream order. The state is split
+    by rows: a CTA holds ``rows`` (16, or n below 16) of the n x n state
+    at all n columns, a thread a ``TILE_ROWS`` x ``TILE_COLS`` tile of it,
+    and the ``cluster`` = n / ``rows`` row groups of a chunk form a
+    thread-block cluster. ``grid`` (row groups x chunks, h, b) is that of
+    the local kernel (each chunk's decay product, its walks from zero as
+    sums of products, a_t and du's partial; ``local_smem_bytes``: r, k, w
+    at the CTA's rows and v, do at all columns for ``CHUNK`` tokens, a_t,
+    and k and r times their decay products) and of the chunk kernel
+    (``smem_bytes``: the stage, a_t, u at the CTA's rows, and ``SUB``
+    tokens' partials in planes of one entry a thread and a padding entry
+    after every 16 threads: dr, dk, dw as float2, dv as float4);
+    ``tile_threads`` hold state, ``threads`` (at least a warp) run a CTA.
+    Between them the carry kernel (``carry_grid``, ``carry_threads``: a
+    thread per 4 columns of a row of a (b, h), S forward and G backward)
+    turns the chunks' walks into start states and end Gs; the du kernel
+    (``du_grid``) adds the chunks' du partials. ``workspace_floats`` by part: the chunks' start
+    states and end Gs, their decays, a_t, the du partials.
+    ``ctas_per_sm_by_smem`` and ``warps_per_scheduler_by_smem``: the chunk
+    kernel's residency as its shared memory and threads allow (the card's
+    registers may allow fewer; ``wkv6_bwd_occupancy`` in the library
+    reports them)."""
     es = torch.empty(0, dtype=dtype).element_size()
-    groups, nch = n // COLS, -(-s // CHUNK)
-    stage = CHUNK * (n * (2 * es + 4) + COLS * (es + 4))
-    parts = {"ckpt": b * h * groups * nch * COLS * n,
-             "partials": 3 * groups * b * h * s * n,
+    rows = min(16, n)
+    groups, nch = n // rows, -(-s // CHUNK)
+    tile = (rows // TILE_ROWS) * (n // TILE_COLS)
+    threads = max(32, tile)
+    stage = CHUNK * (rows * (2 * es + 4) + n * (es + 4)) + CHUNK * 4
+    stride = tile + tile // 16
+    smem = stage + rows * 4 + SUB * stride * (3 * 8 + 16)
+    parts = {"starts": b * h * nch * n * n, "end_g": b * h * nch * n * n,
+             "decay": b * h * nch * n, "a_t": b * h * nch * CHUNK,
              "du": b * nch * h * n}
-    return {"grid": (groups, h, b),
-            "threads": COLS // COLS_PER_THREAD * ROW_GROUPS,
-            "smem_bytes": 2 * stage + CHUNK * n * COLS * 4,
-            "reduce_grid": (nch, h, b), "reduce_threads": n,
-            "du_grid": (h,), "workspace_floats": parts,
-            "workspace_bytes": 4 * sum(parts.values())}
+    ctas = min(SM_SMEM // (smem + 1024), 2048 // threads, 32)
+    return {"grid": (groups * nch, h, b), "cluster": groups, "rows": rows,
+            "tile_threads": tile, "threads": threads, "smem_bytes": smem,
+            "local_smem_bytes": stage + 2 * CHUNK * rows * 4,
+            "carry_grid": (-(-(b * h * n * n // 4) // CARRY_THREADS), 2),
+            "carry_threads": CARRY_THREADS, "du_grid": (h,),
+            "workspace_floats": parts,
+            "workspace_bytes": 4 * sum(parts.values()),
+            "ctas_per_sm_by_smem": ctas,
+            "warps_per_scheduler_by_smem": ctas * threads / 32 / 4}
 
 
 def _launch_bwd(r, k, v, w, u, do, heads: int) -> tuple:
     """Run ``wkv6_bwd`` in the layout whose head axis is ``heads``:
     (dr, dk, dv) in r's dtype, dw and du in f32, in the inputs' shapes and
-    layout."""
+    layout. One call launches the four kernels of ``bwd_launch_plan`` (the
+    chunks' walks from zero, the carry over the chunks, the chunks'
+    reverse walks, du) on a workspace it allocates with ``torch.empty``."""
     global BWD_LAUNCHES
     from repro_torch.kernels.build import load
     r, k, v, w, u, do = (_aligned(a.contiguous())

@@ -46,6 +46,31 @@ def test_wkv6_backward_on_the_card(card, dtype, tol):
         assert err <= tol * float(want_g.float().abs().max())
 
 
+def test_wkv6_backward_is_bitwise_repeatable(card):
+    """Two ``wkv6_bwd`` calls on the same inputs give bitwise-equal
+    gradients: the kernels use no float atomics and add every sum (the
+    chunks' carry, the partials of a CTA, dv across a cluster's row
+    groups, du over the chunks) in a fixed order. (2, 40, 300, 64) bf16:
+    80 heads, ten chunks with a ragged last one, 4 row groups a chunk."""
+    from repro_torch.kernels.rwkv6 import ops as wk
+    g = torch.Generator(device="cuda").manual_seed(1)
+    b, h, s, n = 2, 40, 300, 64
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+    r, k, v = (randn(b, h, s, n).bfloat16() for _ in range(3))
+    w = torch.exp(-torch.exp(randn(b, h, s, n) * 0.5 - 2.0))
+    u, do = randn(h, n) * 0.5, randn(b, h, s, n)
+    bwd = wk.BWD_LAUNCHES
+    first = wk._launch_bwd(r, k, v, w, u, do, heads=1)
+    second = wk._launch_bwd(r, k, v, w, u, do, heads=1)
+    torch.cuda.synchronize()
+    assert wk.BWD_LAUNCHES == bwd + 2
+    for x, y in zip(first, second):
+        assert torch.isfinite(x.float()).all()
+        assert torch.equal(x, y)
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)])
 def test_flash_gradient_on_the_card(card, dtype, tol):

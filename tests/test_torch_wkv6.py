@@ -350,9 +350,8 @@ def test_card_route_takes_grad_through_the_function(layout, monkeypatch):
     assert strides == [c.stride(0), c.stride(heads), c.stride(3 - heads)]
     assert ptrs[:5] == [a.data_ptr() for a in (r, k, v, w, u)]
     plan = ops.bwd_launch_plan(b, h, s, n, torch.bfloat16)
-    assert plan["workspace_bytes"] == 4 * (
-        b * h * (n // 8) * 2 * 8 * n + 3 * (n // 8) * b * h * s * n
-        + b * 2 * h * n)                          # 2 chunks of 32 tokens
+    assert plan["workspace_bytes"] == 4 * b * h * 2 * (  # 2 chunks of 32
+        2 * n * n + 2 * n + 32)
     for i, (t, dt) in enumerate(zip((r, k, v, w, u), [torch.bfloat16] * 3
                                     + [torch.float32] * 2)):
         assert t.grad.dtype == dt and t.grad.shape == t.shape
@@ -372,32 +371,60 @@ def test_card_route_takes_grad_through_the_function(layout, monkeypatch):
 
 
 def test_bwd_launch_plan():
-    """The backward's launches: the forward's grid of one-warp CTAs,
-    shared memory for two chunk buffers (r, k, w at all n rows; v, do at
-    the CTA's 8 columns) and the f32 states before each of a chunk's 32
-    tokens at the CTA's columns; a reduce grid of (chunks, H, B) CTAs of
-    n threads; one du CTA per head. At rwkv6-3b's launch (1, 40, 4096,
-    64) the workspace is ~1.09 GB, most of it the column groups'
-    partials of dr, dk, dw."""
+    """The backward's launches: the state split by rows, 16 a CTA (n
+    below 16: all n), each row group's CTA at all n columns, a thread a
+    2 x 4 tile, the n / rows row groups of a chunk a cluster; the local
+    and chunk kernels on a grid (row groups x chunks, H, B) of at least a
+    warp; the local kernel's shared memory: the stage (r, k, w at the
+    CTA's rows, v, do at all columns, 32 tokens), a_t, and k and r times
+    their decay products; the chunk kernel's: the stage, a_t, u at the
+    CTA's rows, and 8 tokens' partials (dr, dk, dw as float2, dv as
+    float4, a plane of one entry a thread, padded after every 16); the
+    carry, a thread per 4 columns of a row, S and G; one du CTA a head.
+    At rwkv6-3b's launch (1, 40, 4096, 64): 20480 CTAs of 128 threads in
+    clusters of 4, 3 CTAs an SM by shared memory (3 warps a scheduler),
+    and a workspace of the chunks' start states and end Gs (84 MB each),
+    0.17 GB in all (1.09 GB before the state was split by rows and the
+    chunks carried)."""
     for dt, es in ((torch.float32, 4), (torch.bfloat16, 2)):
         for n in ops.HEAD_SIZES:
             p = ops.bwd_launch_plan(3, 5, 77, n, dt)
-            assert p["grid"] == (n // 8, 5, 3) and p["threads"] == 32
-            assert p["smem_bytes"] == 2 * 32 * (n * (2 * es + 4)
-                                                + 8 * (es + 4)) \
-                + 32 * n * 8 * 4
+            rows = min(16, n)
+            tile = rows // 2 * (n // 4)
+            assert p["rows"] == rows and p["cluster"] == n // rows
+            assert p["grid"] == (n // rows * 3, 5, 3)
+            assert p["tile_threads"] == tile
+            assert p["threads"] == max(32, tile) and p["threads"] % 32 == 0
+            stage = 32 * (rows * (2 * es + 4) + n * (es + 4)) + 32 * 4
+            assert p["local_smem_bytes"] == stage + 2 * 32 * rows * 4
+            assert p["smem_bytes"] == stage + rows * 4 + 8 * (
+                tile + tile // 16) * (3 * 8 + 16)
             assert p["smem_bytes"] <= 227 * 1024
-            assert p["reduce_grid"] == (3, 5, 3) and \
-                p["reduce_threads"] == n and p["du_grid"] == (5,)
+            assert p["carry_grid"] == (-(-(15 * n * n // 4) // 128), 2)
+            assert p["carry_threads"] == 128 and p["du_grid"] == (5,)
+            assert p["workspace_bytes"] == 4 * 45 * (2 * n * n + 2 * n
+                                                     + 32)
     p = ops.bwd_launch_plan(1, 40, 4096, 64, torch.bfloat16)
-    assert p["workspace_floats"]["partials"] == 3 * 8 * 40 * 4096 * 64
-    assert p["workspace_bytes"] == 1091829760
+    assert p["grid"] == (4 * 128, 40, 1) and p["cluster"] == 4
+    assert p["threads"] == 128 and p["smem_bytes"] == 60096
+    assert p["ctas_per_sm_by_smem"] == 3
+    assert p["warps_per_scheduler_by_smem"] == 3
+    assert p["workspace_floats"]["starts"] == 40 * 128 * 64 * 64
+    assert p["workspace_bytes"] == 171048960 <= 0.55e9
 
 
-def _vjp_case(rng, shape, bf16=False):
+def _vjp_case(rng, shape, bf16=False, decay="mixed"):
     """Inputs, an output gradient, and jax.vjp of the JAX package's
-    oracle (``repro.kernels.rwkv6.ref.wkv6_ref``) at them."""
+    oracle (``repro.kernels.rwkv6.ref.wkv6_ref``) at them. ``decay``:
+    "mixed" (w = exp(-exp(x)), the model's spread), "near_one" (w = 1 -
+    1e-3: long memory, where the carry over chunks dominates) or
+    "near_zero" (w ~ 0.01: a chunk's decay product underflows to 0)."""
     args = _inputs(rng, shape, 1, bf16=bf16)
+    if decay == "near_one":
+        args = (*args[:3], np.full(shape, 1 - 1e-3, np.float32), args[4])
+    elif decay == "near_zero":
+        args = (*args[:3], rng.uniform(0.005, 0.02, shape).astype(
+            np.float32), args[4])
     do = rng.standard_normal(shape, dtype=np.float32)
     _, vjp = jax.vjp(jax_ref, *map(jnp.asarray, args))
     return args, do, [np.asarray(g) for g in vjp(jnp.asarray(do))]
@@ -430,58 +457,125 @@ def test_wkv6_bwd_ref_matches_jax_vjp(shape, rng):
 
 
 def emulate_bwd_kernel(r, k, v, w, u, do):
-    """``wkv6_bwd``'s schedule in plain torch (BHSN, f32): per column
-    group of 8 state columns, the states at each 32-token chunk's start
-    from a forward walk, then each chunk in reverse: its states
-    recomputed from the chunk's start, the reverse walk with G, dv of
-    the group's columns, and the group's partials of dr, dk and dw
-    without the u a_t terms; then the reduce kernel's sums of the
-    partials in group order plus u a_t, and du."""
-    b, h, s, n = r.shape
-    chunks = [(t, min(t + 32, s)) for t in range(0, s, 32)]
-    part = torch.zeros(3, n // 8, b, h, s, n)
-    dv = torch.empty(b, h, s, n)
-    for g in range(n // 8):
-        cols = slice(8 * g, 8 * g + 8)
+    """``wkv6_bwd``'s schedule in plain torch (BHSN, f32), kernel by
+    kernel as ``ops.bwd_launch_plan`` gives them:
 
-        def step(st, t):
-            return st * w[:, :, t, :, None] + \
-                k[:, :, t, :, None] * v[:, :, t, None, cols]
-        st, starts = torch.zeros(b, h, n, 8), []
-        for t0, t1 in chunks:
-            starts.append(st)
-            for t in range(t0, t1):
+    1. each 32-token chunk's decay product and its walks from zero as
+       sums of products: S_c^0 = sum_t (k_t o decay after t) v_t^T and
+       G_c^0 = sum_t (r_t o decay before t) do_t^T; a_t (a thread's sum
+       over the columns) and du's chunk partials per row;
+    2. the carry, serial in the chunk: run <- D_c o run + x turns them
+       into the chunks' start states (forward) and end Gs (backward);
+    3. per chunk, the states before each 8-token sub-chunk walked from
+       the start state; then per sub-chunk, last first, its states
+       recomputed and the reverse walk from the G reached. A thread's
+       2 x 4 tile gives partials of dr, dk, dw over its 4 columns and of
+       dv over its 2 rows (after its own rows' r u k do term); the CTA
+       adds dr, dk, dw over its column quads and dv over its row pairs,
+       the cluster's row groups add dv in rank order, and dr, dk take the
+       u a_t terms;
+    4. du over (b, chunk).
+
+    The sums inside a thread, and a_t's and du's, are torch's here: the
+    emulation holds the decomposition, not the last bit of each order."""
+    b, h, s, n = r.shape
+    plan = ops.bwd_launch_plan(b, h, s, n, torch.float32)
+    qr, qc = ops.TILE_ROWS, ops.TILE_COLS
+    groups, sub = plan["cluster"], ops.SUB
+    chunks = [(t, min(t + ops.CHUNK, s)) for t in range(0, s, ops.CHUNK)]
+    r, k, v, w, u, do = (a.float() for a in (r, k, v, w, u, do))
+
+    def step(st, t):
+        return st * w[:, :, t, :, None] + \
+            k[:, :, t, :, None] * v[:, :, t, None, :]
+
+    def back(g, t):
+        return w[:, :, t, :, None] * g + \
+            r[:, :, t, :, None] * do[:, :, t, None, :]
+
+    def tiles(x):        # (B, H, row pair, row, column quad, column)
+        return x.reshape(b, h, n // qr, qr, n // qc, qc)
+
+    zero = torch.zeros(b, h, n, n)
+    local = []                                             # 1.
+    for t0, t1 in chunks:
+        after, kt = torch.ones(b, h, n), {}
+        for t in range(t1 - 1, t0 - 1, -1):
+            kt[t] = k[:, :, t] * after
+            after = after * w[:, :, t]
+        before, st, g = torch.ones(b, h, n), zero, zero
+        for t in range(t0, t1):
+            st = st + kt[t][..., None] * v[:, :, t, None, :]
+            g = g + (r[:, :, t] * before)[..., None] * do[:, :, t, None, :]
+            before = before * w[:, :, t]
+        local.append((after[..., None], st, g))
+    starts, ends, run = [], [None] * len(chunks), zero      # 2.
+    for dec, st, _ in local:
+        starts.append(run)
+        run = dec * run + st
+    run = zero
+    for c in range(len(chunks) - 1, -1, -1):
+        ends[c] = run
+        run = local[c][0] * run + local[c][2]
+    a = (v * do).sum(-1)                                   # 3.
+    dr, dk, dv, dw = (torch.full((b, h, s, n), float("nan"))
+                      for _ in range(4))
+    du = torch.zeros(h, n)
+    for (t0, t1), st0, g in zip(chunks, starts, ends):
+        cps = [st0]
+        for lo in range(t0 + sub, t1, sub):
+            st = cps[-1]
+            for t in range(lo - sub, lo):
                 st = step(st, t)
-        gr = torch.zeros(b, h, n, 8)
-        for (t0, t1), st in reversed(list(zip(chunks, starts))):
-            prev = []
-            for t in range(t0, t1):
+            cps.append(st)
+        for j in range(len(cps) - 1, -1, -1):
+            lo, st, prev = t0 + j * sub, cps[j], []
+            hi = min(lo + sub, t1)
+            for t in range(lo, hi):
                 prev.append(st)
                 st = step(st, t)
-            for t in range(t1 - 1, t0 - 1, -1):
-                sp, dd = prev[t - t0], do[:, :, t, cols]
-                part[0, g, :, :, t] = (sp * dd[:, :, None]).sum(-1)
-                part[1, g, :, :, t] = (gr * v[:, :, t, None, cols]).sum(-1)
-                part[2, g, :, :, t] = (gr * sp).sum(-1)
-                ruk = (r[:, :, t] * u * k[:, :, t]).sum(-1)
-                dv[:, :, t, cols] = ruk[..., None] * dd + \
-                    (k[:, :, t, :, None] * gr).sum(-2)
-                gr = w[:, :, t, :, None] * gr + \
-                    r[:, :, t, :, None] * dd[:, :, None]
-    a = (v * do).sum(-1, keepdim=True)
-    dr = part[0].sum(0) + u[:, None] * k * a
-    dk = part[1].sum(0) + r * u[:, None] * a
-    du = (r * k * a).sum((0, 2))
-    return dr, dk, dv, part[2].sum(0), du
+            for t in range(hi - 1, lo - 1, -1):
+                sp, gq = tiles(prev[t - lo]), tiles(g)
+                dd = do[:, :, t].reshape(b, h, 1, 1, n // qc, qc)
+                vv = v[:, :, t].reshape(b, h, 1, 1, n // qc, qc)
+                kk = k[:, :, t].reshape(b, h, n // qr, qr, 1, 1)
+                ruk = (r[:, :, t] * u * k[:, :, t]).reshape(
+                    b, h, n // qr, qr).sum(-1)[..., None, None]
+                # a thread's partials, then the CTA's sums over its quads
+                pr, pk, pw = ((x * y).sum(-1).sum(-1).reshape(b, h, n)
+                              for x, y in ((sp, dd), (gq, vv), (gq, sp)))
+                pv = ruk * dd[:, :, :, 0] + (kk * gq).sum(3)   # B,H,RP,CQ,4
+                pv = pv.reshape(b, h, groups, -1, n // qc, qc).sum(3)
+                dv[:, :, t] = pv.sum(2).reshape(b, h, n)       # rank order
+                dr[:, :, t] = pr + u * k[:, :, t] * a[:, :, t, None]
+                dk[:, :, t] = pk + r[:, :, t] * u * a[:, :, t, None]
+                dw[:, :, t] = pw
+                g = back(g, t)
+        du += (r[:, :, t0:t1] * k[:, :, t0:t1]
+               * a[:, :, t0:t1, None]).sum(2).sum(0)           # 4.
+    return dr, dk, dv, dw, du
 
 
-@pytest.mark.parametrize("shape", [(2, 3, 40, 16), (1, 2, 77, 8),
-                                   (1, 1, 33, 64)])
-def test_bwd_schedule_emulation_matches_jax_vjp(shape, rng):
-    """The kernel's decomposition (column groups, chunk checkpoints,
-    partials reduced after the walk) gives jax.vjp's gradients within
-    1e-5 x max|g|."""
-    args, do, want = _vjp_case(rng, shape)
+# (b, h, s, n), decay: ragged last chunks (40, 77, 70), S = chunk + 1
+# (33), S = 1, every head size (n = 32 and 64: clusters of 2 and 4 row
+# groups), w near 1 over 7 chunks and near 0
+BWD_CASES = [((2, 3, 40, 16), "mixed"), ((1, 2, 77, 8), "mixed"),
+             ((1, 1, 33, 64), "mixed"), ((1, 2, 200, 16), "near_one"),
+             ((1, 1, 70, 64), "near_one"), ((2, 2, 77, 32), "near_zero"),
+             ((1, 1, 45, 64), "near_zero"), ((2, 2, 1, 16), "mixed"),
+             ((1, 2, 33, 32), "near_one")]
+
+
+@pytest.mark.parametrize("shape,decay", BWD_CASES,
+                         ids=[f"shape{i}" for i in range(len(BWD_CASES))])
+def test_bwd_schedule_emulation_matches_jax_vjp(shape, decay, rng):
+    """The kernel's schedule (chunk-local walks from zero, the carry,
+    the sub-chunks' reverse walks, the CTA's and the cluster's sums in
+    their order) gives jax.vjp's gradients within 1e-5 x max|g|, also
+    where the carry dominates (w near 1) and where the chunks' decay
+    products underflow (w near 0)."""
+    args, do, want = _vjp_case(rng, shape, decay=decay)
     got = emulate_bwd_kernel(*map(torch.from_numpy, args),
                              torch.from_numpy(do))
+    assert not any(torch.isnan(x).any() for x in got)  # every token written
     _close_grads(got, want, 1e-5)
