@@ -149,7 +149,30 @@ Phases, each of which fails the run on error:
            optimizer), pool bytes a rank copies per part, launches per
            rank and step (``cellcopy`` > 0 on every rank), peak per
            process.
-7. report  the ``kernels`` JSON line (times at the main paths' shapes,
+7. steps   the step functions of ``train/steps.py``: (a) on this card,
+           ``make_train_step`` of smollm-135m at its published config:
+           f32 at 4 x 256, ga 4 against ga 1 (loss rel 1e-5, each leaf's
+           gradient within 1e-4 x max|g|, params within 1e-4); bf16 at
+           8 x 4096 with ``pick_grad_accum``'s 4 microbatches (one
+           flash launch a layer and microbatch, peak beside phase 5's at
+           ga 1, tokens/s); one step of train_4k's 256 x 4096 (ga 128),
+           peak under 80 GB; (b) ``run_processes(4, ep_path, ...)``, same
+           pool and cells, data 2 x model 2: granite-moe-1b-a400m under
+           ``configs.optimized`` (``moe_shard="ep_a2a"``, greedy tokens
+           from the split vocab), each rank its block of the experts
+           (``shard_experts``): f32 at capacity factor 8 against one
+           process's dense dispatch on the rank's row (1e-3 x
+           max|logit|), then ``make_serve_prefill`` of 2 x 4096 and 8
+           ``make_serve_decode`` steps in bf16, the model ranks of a row
+           bitwise alike, one flash launch a layer and a ``cellcopy`` or
+           more a MoE layer and step on every rank; prefill s, decode
+           tokens/s, pool bytes, peak; (c) ``make_train_step`` under the
+           same mesh, granite-moe cut to 2 layers in f32: every synced
+           leaf within 1e-4 x max|g| of one process's step, one flash
+           launch a layer and a ``cellcopy`` or more on every rank. The
+           counts go to 0 just before (b)'s timed prefill and (c)'s step
+           and are read just after, each path on its own.
+8. report  the ``kernels`` JSON line (times at the main paths' shapes,
            ``cellcopy``'s beside ``Tensor.copy_`` (one at the serving
            tier's 4096 B page), its launches per path, ``flash_attention``
            at every shape phases 4 and 5 launch it at, beside SDPA,
@@ -171,6 +194,7 @@ result. Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import json
+import math
 import os
 import re
 import signal
@@ -283,6 +307,32 @@ CMPI = {"ranks": 4, "mesh": (2, 2), "axes": ("pod", "data"),
 RESTART_CUTS = {"smollm-135m": {},
                 "granite-moe-1b-a400m": {"n_layers": 2},
                 "rwkv6-3b": {"n_layers": 2}}
+# phase 7, the step functions of train/steps.py. (a) gradient
+# accumulation, smollm-135m at its published config: f32 parity at
+# 4 x 256 (ga 4 against ga 1; loss rel, each leaf's gradient within
+# grad_tol x its max|g|, the params after the step within params_tol),
+# bf16 at 8 x 4096 (ga = pick_grad_accum = 4; 1 warm + mem_steps timed
+# steps) and one step of train_4k's whole 256 x 4096 (ga 128)
+STEPS_GA = {"arch": "smollm-135m", "parity_rows": 4, "parity_seq": 256,
+            "parity_ga": 4, "loss_rtol": 1e-5, "grad_tol": 1e-4,
+            "params_tol": 1e-4, "mem_rows": 8, "mem_steps": 2}
+# (b) expert-parallel serving of granite-moe-1b-a400m under the JAX
+# package's serving flags (configs.optimized), 4 processes (data 2 x
+# model 2) over the pool: prefill of `rows` x `prompt` global (one row a
+# dp rank), then `decode` greedy steps; the ranks of a dp row bitwise
+# alike; at capacity factor check_cf (a check-only cut: no token drops,
+# so the dense dispatch groups alike) each rank's f32 last-position
+# logits within logit_tol x max|logit| of one process's lm.prefill
+# through the dense moe_apply on its row. (c) make_train_step under the
+# same mesh: granite-moe cut to 2 layers, f32, 2 x 256 a dp rank, at
+# check_cf; every synced leaf within grad_tol x max|g| of one process's
+# step over the global batch in 2 microbatches (the dp ranks' rows: the
+# mean of the shards' aux gradients)
+EP = {"arch": "granite-moe-1b-a400m", "ranks": 4, "mesh": (2, 2),
+      "axes": ("data", "model"), "rows": 2, "prompt": LONG_PROMPT,
+      "decode": 8, "logit_tol": 1e-3, "check_cf": 8.0,
+      "train_layers": 2, "train_rows": 2, "train_seq": 256,
+      "grad_tol": 1e-4}
 
 
 def fail(msg: str) -> None:
@@ -2474,6 +2524,374 @@ def check_cmpi(ranks: list[dict], cmpi_s: float) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the step functions (train/steps.py)
+# ---------------------------------------------------------------------------
+
+def _leaf_shares(got, want, tol: float) -> float:
+    """The largest ``_grad_share`` over two trees' leaves."""
+    from repro_torch.models import lm
+    return max(_grad_share(a, b, tol) for a, b in zip(
+        lm.tree_leaves(got), lm.tree_leaves(want)))
+
+
+def steps_ga_phase() -> dict:
+    """(a) ``make_train_step`` on one card (``dist=None``), smollm-135m at
+    its published config: f32 parity of ga 4 against ga 1 at 4 x 256;
+    bf16 at 8 x 4096 with ``pick_grad_accum``'s 4 microbatches (peak,
+    tokens/s, flash launches a step); one step of train_4k's 256 x 4096
+    (ga 128). The counts go to 0 just before the bf16 steps and are read
+    just after the full step."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.kernels.cellcopy import ops as cc
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.models import lm
+    from repro_torch.train import data as D
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import steps as ST
+    g = STEPS_GA
+    res: dict = {}
+
+    def batch_of(cfg, shape, i=0):
+        return {k: torch.from_numpy(v).cuda() for k, v in D.SyntheticLM(
+            D.for_model(cfg, shape, 0)).batch(i).items()}
+
+    # parity in f32, TF32 off
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_config(g["arch"]), compute_dtype="float32")
+    shape = dataclasses.replace(SHAPES["train_4k"], seq_len=g["parity_seq"],
+                                global_batch=g["parity_rows"])
+    batch = batch_of(cfg, shape)
+    out, after = {}, {}
+    for ga in (g["parity_ga"], 1):
+        step = ST.make_train_step(cfg, shape, None, grad_accum=ga)
+        params = lm.init(cfg, 0, device="cuda")
+        out[ga] = step.grads(params, batch)
+        state = opt.init(opt.for_model(cfg), params)
+        step.fn(params, state, batch)
+        after[ga] = params
+    (g_ga, m_ga), (g_1, m_1) = out[g["parity_ga"]], out[1]
+    loss_rel = abs(float(m_ga["loss"]) - float(m_1["loss"])) / abs(
+        float(m_1["loss"]))
+    share = _leaf_shares(g_ga, g_1, g["grad_tol"])
+    p_diff = max(float((a.detach() - b.detach()).abs().max()) for a, b in zip(
+        lm.tree_leaves(after[g["parity_ga"]]), lm.tree_leaves(after[1])))
+    res["parity"] = {"rows": g["parity_rows"], "seq": g["parity_seq"],
+                     "ga": g["parity_ga"], "loss_rel": loss_rel,
+                     "loss_rtol": g["loss_rtol"], "grad_share": share,
+                     "grad_bound": f"{g['grad_tol']} x max|g| a leaf",
+                     "params_max_abs": p_diff,
+                     "params_tol": g["params_tol"]}
+    if not (loss_rel <= g["loss_rtol"] and share <= 1
+            and p_diff <= g["params_tol"]):
+        fail(f"steps (a): ga {g['parity_ga']} against ga 1: "
+             f"{res['parity']}")
+    del out, after, g_ga, g_1, params, state
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.cuda.empty_cache()
+
+    # bf16 at 8 x 4096, then train_4k's whole batch
+    cfg = get_config(g["arch"])
+    params = lm.init(cfg, 0, device="cuda")
+    state = opt.init(opt.for_model(cfg), params)
+    layers = prefill_launches(cfg)["flash_attention"]
+    shape = dataclasses.replace(SHAPES["train_4k"],
+                                global_batch=g["mem_rows"])
+    step = ST.make_train_step(cfg, shape, None)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fa.LAUNCHES = cc.LAUNCHES = 0
+    times, losses = [], []
+    for i in range(g["mem_steps"] + 1):           # step 0 warms up
+        batch = batch_of(cfg, shape, i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, m = step.fn(params, state, batch)
+        times.append(_sync_s(t0))
+        losses.append(float(m["loss"]))
+    mem_launches = fa.LAUNCHES
+    res["mem"] = {"rows": g["mem_rows"], "seq": shape.seq_len,
+                  "ga": step.grad_accum, "step_s": times[1:],
+                  "tokens_per_s": g["mem_rows"] * shape.seq_len
+                  / min(times[1:]), "losses": losses,
+                  "flash_launches_per_step": mem_launches
+                  // (g["mem_steps"] + 1),
+                  "peak_GB": torch.cuda.max_memory_allocated() / 1e9}
+    want = layers * step.grad_accum
+    if step.grad_accum != 4 or mem_launches != want * (g["mem_steps"] + 1):
+        fail(f"steps (a): ga {step.grad_accum}, flash launches "
+             f"{mem_launches}, want {want} a step (one a layer and "
+             "microbatch)")
+    if not all(map(math.isfinite, losses)) or not res["mem"]["peak_GB"] < 80:
+        fail(f"steps (a): 8 x 4096: {res['mem']}")
+
+    shape = SHAPES["train_4k"]
+    step = ST.make_train_step(cfg, shape, None)
+    t0 = time.perf_counter()
+    batch = batch_of(cfg, shape, g["mem_steps"] + 1)
+    gen_s = _sync_s(t0)
+    torch.cuda.reset_peak_memory_stats()
+    fa.LAUNCHES = 0
+    t0 = time.perf_counter()
+    _, _, m = step.fn(params, state, batch)
+    full_s = _sync_s(t0)
+    res["full"] = {"rows": shape.global_batch, "seq": shape.seq_len,
+                   "ga": step.grad_accum, "batch_gen_s": gen_s,
+                   "step_s": full_s,
+                   "tokens_per_s": shape.global_batch * shape.seq_len
+                   / full_s, "loss": float(m["loss"]),
+                   "flash_launches": fa.LAUNCHES,
+                   "peak_GB": torch.cuda.max_memory_allocated() / 1e9}
+    res["launches"] = {"flash_attention": mem_launches + fa.LAUNCHES,
+                       "cellcopy": cc.LAUNCHES}
+    if step.grad_accum != 128 or fa.LAUNCHES != layers * 128:
+        fail(f"steps (a): train_4k: ga {step.grad_accum}, flash launches "
+             f"{fa.LAUNCHES}")
+    if not math.isfinite(res["full"]["loss"]) or \
+            not res["full"]["peak_GB"] < 80:
+        fail(f"steps (a): train_4k: {res['full']}")
+    del params, state, batch
+    torch.cuda.empty_cache()
+    return res
+
+
+def _ep_counts(zero: bool = False) -> dict:
+    """This process's launch counts of the two kernels phase 7 (b) and
+    (c) run; with ``zero``, set them to 0 (just before a main path)."""
+    from repro_torch.kernels.cellcopy import ops as cc
+    from repro_torch.kernels.flash_attention import ops as fa
+    if zero:
+        cc.LAUNCHES = fa.LAUNCHES = 0
+    return {"cellcopy": cc.LAUNCHES, "flash_attention": fa.LAUNCHES}
+
+
+def _ep_train(env, dist) -> dict:
+    """(c) ``make_train_step`` under ``dist``: granite-moe cut to 2 layers,
+    f32 (TF32 off), at ``check_cf``; the synced gradients, and on rank 0
+    their shares of the bound against one process's step over the global
+    batch in dp x ga microbatches (the blocks of rows the ranks took)."""
+    import dataclasses
+    import hashlib
+
+    import torch
+
+    from repro_torch.configs import SHAPES, get_config, optimized
+    from repro_torch.models import lm
+    from repro_torch.train import data as D
+    from repro_torch.train import steps as ST
+    cfg = optimized(get_config(EP["arch"]))
+    cfg = dataclasses.replace(
+        cfg, n_layers=EP["train_layers"], compute_dtype="float32",
+        moe=dataclasses.replace(cfg.moe, capacity_factor=EP["check_cf"]))
+    shape = dataclasses.replace(
+        SHAPES["train_4k"], seq_len=EP["train_seq"],
+        global_batch=EP["train_rows"] * dist.dp_size)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in D.SyntheticLM(
+        D.for_model(cfg, shape, 0)).batch(0).items()}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    params = lm.init(cfg, 0, device="cuda")
+    step = ST.make_train_step(cfg, shape, dist)
+    _ep_counts(zero=True)
+    grads, metrics = step.grads(params, batch)
+    rep = {"ga": step.grad_accum, "loss": float(metrics["loss"]),
+           "aux": float(metrics["aux"]), "launches": _ep_counts(),
+           "attn_layers": prefill_launches(cfg)["flash_attention"],
+           "digest": hashlib.sha256(b"".join(
+               g.cpu().numpy().tobytes()
+               for g in lm.tree_leaves(grads))).hexdigest()}
+    if env.rank == 0:
+        # each of its microbatches one (dp rank, microbatch) block
+        one = ST.make_train_step(cfg, shape, None, grad_accum=dist.dp_size
+                                 * step.grad_accum)
+        want, wm = one.grads(lm.init(cfg, 0, device="cuda"), batch)
+        rep["grad_share"] = _leaf_shares(grads, want, EP["grad_tol"])
+        rep["single_loss"] = float(wm["loss"])
+        del want
+    del params, grads
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.cuda.empty_cache()
+    return rep
+
+
+def ep_path(env) -> dict:
+    """Phase 7's rank program (4 ranks, data 2 x model 2): (c) the train
+    step under the dist; then (b) expert-parallel serving of granite-moe
+    at full width: each rank's f32 check against the dense dispatch at
+    ``check_cf``, then ``make_serve_prefill`` of ``rows`` x ``prompt`` and
+    ``decode`` steps of ``make_serve_decode`` (bf16, the published
+    capacity factor), each timed, with the pool bytes the rank copies
+    and its launches (counts to 0 just before the timed prefill, read
+    after it and after the decode steps; the f32 check, the warm-up and
+    (c) are outside that window, and (c) counts its own step alike)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import InputShape, get_config, optimized
+    from repro_torch.distributed.context import DistContext
+    from repro_torch.distributed.sharding import shard_experts
+    from repro_torch.models import lm
+    from repro_torch.train import steps as ST
+    stats = env.arena.view.stats
+    t_all = time.perf_counter()
+    dist = DistContext(env.comm, EP["mesh"], EP["axes"])
+    rep = {"rank": env.rank, "coords": dist.coords,
+           "dp_index": dist.dp_index, "train": _ep_train(env, dist)}
+    env.comm.barrier()
+
+    cfg = optimized(get_config(EP["arch"]))
+    b, s = EP["rows"], EP["prompt"]
+    g = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (b, s), generator=g).cuda()
+    params = lm.init(cfg, 0, device="cuda")
+    # the f32 check at check_cf: one process's dense dispatch on the
+    # rank's row against the ep prefill
+    torch.backends.cuda.matmul.allow_tf32 = False
+    f32 = dataclasses.replace(cfg, compute_dtype="float32", moe=dataclasses
+                              .replace(cfg.moe, capacity_factor=EP[
+                                  "check_cf"]))
+    row = dist.shard_batch({"tokens": toks})
+    with torch.no_grad():
+        dense = lm.prefill(params, f32, row)
+    params = shard_experts(params, cfg, dist)
+    torch.cuda.empty_cache()
+    rep["param_GB"] = sum(t.numel() * t.element_size()
+                          for t in lm.tree_leaves(params)) / 1e9
+    pre = ST.make_serve_prefill(f32, InputShape("p", "prefill", s, b), dist)
+    ep32 = pre.fn(params, {"tokens": toks})
+    rep["f32_share"] = float((ep32 - dense).abs().max()) / (
+        EP["logit_tol"] * float(dense.abs().max()))
+    torch.backends.cuda.matmul.allow_tf32 = True
+    del dense, ep32
+
+    # the main path: bf16, the published capacity factor
+    pre = ST.make_serve_prefill(cfg, InputShape("p", "prefill", s, b), dist)
+    dec = ST.make_serve_decode(cfg, InputShape("d", "decode",
+                                               s + EP["decode"], b), dist)
+    state = lm.decode_state_init(cfg, b // dist.dp_size, s + EP["decode"],
+                                 device="cuda")
+    pre.fn(params, {"tokens": toks})                       # warm
+    torch.cuda.reset_peak_memory_stats()
+    b0, c0 = stats.copied_bytes, _ep_counts(zero=True)
+    t0 = time.perf_counter()
+    logits = pre.fn(params, {"tokens": toks})
+    rep["prefill_s"] = _sync_s(t0)
+    b1, c1 = stats.copied_bytes, _ep_counts()
+    tok = logits.argmax(-1).int()
+    tok = dist.comms["data"].allgather(tok)
+    tokens = []
+    t0 = time.perf_counter()
+    for i in range(EP["decode"]):
+        pos = torch.full((b,), s + i, dtype=torch.int32, device="cuda")
+        local, state = dec.fn(params, state, {"tokens": tok[:, None]}, pos)
+        tokens.append(local.cpu())
+        tok = dist.comms["data"].allgather(local)
+    rep["decode_s"] = _sync_s(t0)
+    b2, c2 = stats.copied_bytes, _ep_counts()
+    rep.update({
+        "logits": logits.float().cpu().numpy(),
+        "tokens": torch.stack(tokens).numpy(),
+        "token_mode": local.dtype == torch.int32,
+        "pool_bytes_prefill": b1 - b0, "pool_bytes_decode": b2 - b1,
+        "launches_prefill": {k: c1[k] - c0[k] for k in c1},
+        "launches_decode": {k: c2[k] - c1[k] for k in c1},
+        "launches": c2,
+        "moe_layers": cfg.n_layers,
+        "attn_layers": prefill_launches(cfg)["flash_attention"],
+        "peak_GB": torch.cuda.max_memory_allocated() / 1e9,
+        "seconds": time.perf_counter() - t_all})
+    return rep
+
+
+def check_ep(ranks: list[dict], ep_s: float) -> dict:
+    """Hold phase 7 (b) and (c)'s reports to their gates; returns their
+    summary."""
+    import numpy as np
+    say(f"[ep] {len(ranks)} ranks: {ep_s:.1f} s, launches per rank "
+        f"{[r['launches'] for r in ranks]}")
+    if [r["dp_index"] for r in ranks] != [0, 0, 1, 1]:
+        fail(f"ep: mesh order {[r['coords'] for r in ranks]}")
+    # (c)
+    tr = [r["train"] for r in ranks]
+    if len({t["digest"] for t in tr}) != 1:
+        fail("ep (c): the ranks' synced gradients differ")
+    if not tr[0]["grad_share"] <= 1:
+        fail(f"ep (c): synced gradients {tr[0]['grad_share']:.3g} x "
+             f"{EP['grad_tol']} x max|g| from one process's")
+    for t in tr:
+        lc = t["launches"]
+        if lc["cellcopy"] <= 0 or \
+                lc["flash_attention"] != t["attn_layers"] * t["ga"]:
+            fail(f"ep (c): a rank's step launched {lc}; want a cellcopy "
+                 f"or more and one flash a layer ({t['attn_layers']}) "
+                 f"and microbatch ({t['ga']})")
+    # (b)
+    for a, b in (ranks[0], ranks[1]), (ranks[2], ranks[3]):
+        if not (np.array_equal(a["logits"], b["logits"])
+                and np.array_equal(a["tokens"], b["tokens"])):
+            fail("ep (b): the model ranks of a dp row differ")
+    share = max(r["f32_share"] for r in ranks)
+    if not share <= 1:
+        fail(f"ep (b): f32 ep prefill {share:.3g} x {EP['logit_tol']} x "
+             "max|logit| from the dense dispatch")
+    for r in ranks:
+        lp, ld = r["launches_prefill"], r["launches_decode"]
+        if lp["flash_attention"] != r["attn_layers"] \
+                or lp["cellcopy"] < r["moe_layers"] \
+                or ld["cellcopy"] < r["moe_layers"] * EP["decode"]:
+            fail(f"ep (b): rank {r['rank']} launched {lp} in the prefill "
+                 f"and {ld} in {EP['decode']} decode steps; want one "
+                 f"flash a layer ({r['attn_layers']}) and a cellcopy or "
+                 f"more a MoE layer ({r['moe_layers']}) and step")
+        if not r["token_mode"]:
+            fail("ep (b): decode returned logits, not greedy tokens")
+    n_tok = EP["rows"] * EP["decode"]
+    return {
+        "b": {"arch": EP["arch"], "flags": "configs.optimized",
+              "mesh": dict(zip(EP["axes"], EP["mesh"])),
+              "prefill": f"{EP['rows']} x {EP['prompt']}",
+              "prefill_s": max(r["prefill_s"] for r in ranks),
+              "decode_steps": EP["decode"],
+              "decode_tokens_per_s": n_tok / max(r["decode_s"]
+                                                 for r in ranks),
+              "f32_share_of_bound": share,
+              "f32_bound": f"{EP['logit_tol']} x max|logit| at capacity "
+                           f"factor {EP['check_cf']}",
+              "pool_bytes_prefill_per_rank": [r["pool_bytes_prefill"]
+                                              for r in ranks],
+              "pool_bytes_decode_per_rank": [r["pool_bytes_decode"]
+                                             for r in ranks],
+              "launches_prefill_per_rank": [r["launches_prefill"]
+                                            for r in ranks],
+              "launches_decode_per_rank": [r["launches_decode"]
+                                           for r in ranks],
+              "param_GB_per_rank": [r["param_GB"] for r in ranks],
+              "peak_GB_per_process": [r["peak_GB"] for r in ranks],
+              "ranks_of_a_row_bitwise_equal": True},
+        "c": {"layers": EP["train_layers"],
+              "batch": f"{EP['train_rows']} x {EP['train_seq']} a dp rank",
+              "grad_share_of_bound": tr[0]["grad_share"],
+              "grad_bound": f"{EP['grad_tol']} x max|g| a leaf",
+              "loss": tr[0]["loss"], "single_loss": tr[0]["single_loss"],
+              "launches_per_rank": [t["launches"] for t in tr],
+              "ranks_bitwise_equal": True},
+        # each from its own window: (b)'s timed prefill and decode, (c)'s
+        # step; the f32 check and the references are outside both
+        "launches_serve": {k: sum(r["launches"][k] for r in ranks)
+                           for k in ranks[0]["launches"]},
+        "launches_train": {k: sum(t["launches"][k] for t in tr)
+                           for k in tr[0]["launches"]},
+        "phase_s": ep_s,
+        "reduced": [f"(b) capacity factor {EP['check_cf']} for the f32 "
+                    "check only", f"(c) depth 24 -> "
+                    f"{EP['train_layers']} layers, capacity factor "
+                    f"{EP['check_cf']}"]}
+
+
 def _ptxas_kernels(log: str) -> dict:
     """{mangled name: {"registers", "spill_stores", "spill_loads"}} of
     every entry function in nvcc's ``-Xptxas -v`` output."""
@@ -2908,7 +3326,29 @@ def main() -> None:
     del cranks
     say(f"[cmpi] {json.dumps(cmpi)}")
 
-    # 7. report
+    # 7. the step functions: (a) on this card, its counts to 0 just
+    # before its main path and read just after (in steps_ga_phase); (b)
+    # and (c) in 4 processes, each rank's counts from 0 in its own
+    # process; the parent launches nothing meanwhile
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    steps_ga = steps_ga_phase()
+    steps_ga["mem"]["peak_GB_ga1_phase5"] = training[
+        STEPS_GA["arch"]]["peak_GB"]
+    say(f"[steps] {json.dumps(steps_ga)} ({time.perf_counter() - t0:.1f} s)")
+    torch.cuda.empty_cache()
+    ops.LAUNCHES = 0
+    t0 = time.perf_counter()
+    eranks = run_processes(EP["ranks"], ep_path, pool_bytes=POOL_BYTES,
+                           cell_size=CELL, device="cuda", timeout=900)
+    ep_s = time.perf_counter() - t0
+    if ops.LAUNCHES:
+        fail("the parent launched kernels during the ep phase")
+    ep = check_ep(eranks, ep_s)
+    del eranks
+    say(f"[ep] {json.dumps(ep)}")
+
+    # 8. report
     for r in rows:
         say(f"[time] {json.dumps(r)}")
     flash_rows, wkv_rows = model_kernel_timings()
@@ -2920,7 +3360,9 @@ def main() -> None:
                "window": sum(win_launches), "serve": sum(serve_launches),
                "train_arena_checkpoint":
                    training["restart"]["arena"]["cellcopy_launches"],
-               "cmpi_train": cmpi["launches"]["cellcopy"]}
+               "cmpi_train": cmpi["launches"]["cellcopy"],
+               "ep_serve": ep["launches_serve"]["cellcopy"],
+               "dist_train_step": ep["launches_train"]["cellcopy"]}
     entries = [{
         "name": "cellcopy", "route": "cuda",
         "source": "src/repro_torch/csrc/cellcopy.cu",
@@ -2950,6 +3392,12 @@ def main() -> None:
         if name == "flash_attention":
             by_model[f"{CMPI['arch']} (cmpi, {CMPI['ranks']} ranks)"] = \
                 cmpi["launches"][name]
+            by_model[f"{STEPS_GA['arch']} (make_train_step, ga)"] = \
+                steps_ga["launches"][name]
+            by_model[f"{EP['arch']} (ep serve, {EP['ranks']} ranks)"] = \
+                ep["launches_serve"][name]
+            by_model[f"{EP['arch']} (dist train step, {EP['ranks']} "
+                     "ranks)"] = ep["launches_train"][name]
         entries.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{src}", "replaces": replaces,
@@ -2989,6 +3437,7 @@ def main() -> None:
     say(json.dumps({"training": {k: training[k] for k in (
         "grad", "model_grad", *TRAIN, "restart")}}))
     say(json.dumps({"cmpi_training": cmpi}))
+    say(json.dumps({"steps": {"grad_accum": steps_ga, "ep": ep}}))
     say(f"[done] {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": entries}))
     say(nvidia_smi())

@@ -1,15 +1,13 @@
 """The distribution layer (the JAX package's ``repro.distributed``): a
-rank's view of the mesh over the port's ``Comm`` (``context``), the cMPI
-gradient schedule and train step (``schedules``), int8 compression
+rank's view of the mesh over the port's ``Comm`` (``context``), the
+sharding specs as a placement model (``sharding``), the cMPI gradient
+schedule and train step (``schedules``), int8 compression
 (``compression``) and host-side coordination (``host_coord``).
 
 Exports are lazy (PEP 562), with the same names as the JAX package's:
 importing this package loads nothing of the model stack, so a
 host-side rank (a data loader, a checkpoint writer) can import
-``host_coord``'s names from here alone. The JAX package's sharding specs
-(``batch_pspecs``, ``decode_state_pspecs``, ``opt_state_pspecs``,
-``param_pspecs``) are not ported yet (``ROADMAP.md`` Queue 1, item 7):
-touching one raises."""
+``host_coord``'s names from here alone."""
 _CONTEXT = ("DistContext",)
 _SHARDING = ("batch_pspecs", "decode_state_pspecs", "opt_state_pspecs",
              "param_pspecs")
@@ -24,9 +22,8 @@ def __getattr__(name):
         from repro_torch.distributed import context
         return getattr(context, name)
     if name in _SHARDING:
-        raise NotImplementedError(
-            f"{name} (the GSPMD sharding specs) is not ported to "
-            "repro_torch yet (ROADMAP.md Queue 1, item 7)")
+        from repro_torch.distributed import sharding
+        return getattr(sharding, name)
     if name in _HOST_COORD:
         from repro_torch.distributed import host_coord
         return getattr(host_coord, name)

@@ -12,6 +12,10 @@ fastest), so rank r holds the shard that device r holds there.
   * ``constrain_act``, ``constrain_seq``, ``constrain_kv`` and
     ``constrain_scores`` are identities: each rank already holds its
     local tensor, so there is no layout for a compiler to constrain.
+  * ``shard_batch`` cuts a global batch to the rank's rows over the dp
+    axes (``bspec``), and ``shard_leaf`` any tensor to the rank's block
+    under a spec of ``distributed.sharding``: the block device r holds
+    under the JAX package's ``NamedSharding`` of the same spec.
   * ``vp_embed``, ``vp_cross_entropy`` and ``vp_greedy_token`` compute on
     the rank's vocab slice of the (replicated) table and reduce over the
     ``model`` communicator: sum, max and min allreduces.
@@ -27,6 +31,7 @@ taken without gradient as there.
 """
 from __future__ import annotations
 
+import copy
 import math
 from typing import Optional
 
@@ -67,15 +72,36 @@ class _Replicated(torch.autograd.Function):
         return ctx.comm.allreduce(g.contiguous()), None
 
 
+class _OnceOver(torch.autograd.Function):
+    """Forward: the input as it is. Backward: the gradient / ``n``: a
+    value each of ``n`` ranks computes alike from inputs whose gradient
+    is then summed over them (``_Replicated``), so that it counts once."""
+
+    @staticmethod
+    def forward(ctx, x, n):
+        ctx.n = n
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.n, None
+
+
 class DistContext:
     """``comm``'s ranks as a mesh of ``shape`` over ``axes`` (a subset of
     ``("pod", "data", "model")`` in that order, as the JAX package's
     meshes name them). Building it is collective over ``comm``: every
     rank splits one sub-communicator per axis and one over the
-    data-parallel axes together."""
+    data-parallel axes together.
+
+    ``batch_shardable`` is the JAX package's flag: False where the global
+    batch does not split over the dp axes, and then every dp rank takes
+    the whole batch (``bspec`` is None). ``with_batch_shardable`` gives a
+    copy with only the flag changed, over the same sub-communicators."""
 
     def __init__(self, comm: Comm, shape: tuple[int, ...],
-                 axes: tuple[str, ...] = ("data", "model")):
+                 axes: tuple[str, ...] = ("data", "model"), *,
+                 batch_shardable: bool = True):
         if len(shape) != len(axes) or [a for a in AXES if a in axes] \
                 != list(axes):
             raise ValueError(f"mesh axes {axes} of shape {shape}: a "
@@ -86,6 +112,7 @@ class DistContext:
                              f"{math.prod(shape)} devices; the comm has "
                              f"{comm.size} ranks")
         self.comm = comm
+        self.batch_shardable = batch_shardable
         self.shape = dict(zip(axes, shape))
         coords, r = {}, comm.rank
         for a in reversed(axes):
@@ -102,6 +129,13 @@ class DistContext:
         rest = [self.coords[b] for b in axes if b not in dp]
         self.dp_comm: Optional[Comm] = comm.split(
             self._flat(rest, *dp), key=self.dp_index) if dp else None
+
+    def with_batch_shardable(self, flag: bool) -> "DistContext":
+        """This context with ``batch_shardable`` set to ``flag`` (no
+        collective: the sub-communicators are shared)."""
+        out = copy.copy(self)
+        out.batch_shardable = flag
+        return out
 
     def _flat(self, coords: list[int], *skip: str) -> int:
         """Row-major index of ``coords`` over the axes not in ``skip``."""
@@ -127,6 +161,12 @@ class DistContext:
                           *[a for a in self.shape if a not in self.dp])
 
     @property
+    def bspec(self) -> Optional[tuple[str, ...]]:
+        """The batch dim's spec: the dp axes where the batch splits over
+        them, else None (replicated)."""
+        return self.dp if (self.dp and self.batch_shardable) else None
+
+    @property
     def model_size(self) -> int:
         return self.shape.get("model", 1)
 
@@ -136,18 +176,38 @@ class DistContext:
     def shard_batch(self, batch: dict) -> dict:
         """This rank's rows of a global batch split over the dp axes
         (leading axis), as the JAX package's ``P(("pod", "data"))``; the
-        whole batch on a mesh without them."""
-        if not self.dp:
+        whole batch where ``bspec`` is None."""
+        if self.bspec is None:
             return batch
-        n, i = self.dp_size, self.dp_index
-        out = {}
-        for k, v in batch.items():
-            if v.shape[0] % n:
-                raise ValueError(f"batch[{k!r}]: {v.shape[0]} rows do not "
-                                 f"split over {n} data-parallel ranks")
-            per = v.shape[0] // n
-            out[k] = v[i * per:(i + 1) * per]
-        return out
+        return {k: self.shard_leaf(v, (self.bspec,), name=f"batch[{k!r}]")
+                for k, v in batch.items()}
+
+    def shard_leaf(self, x, spec, *, name: str = "leaf"):
+        """This rank's block of ``x`` under ``spec`` (one entry a leading
+        dim: None, an axis name, or a tuple of names; dims past the spec
+        are whole). A dim split over several axes takes the row-major
+        index of the rank's coordinates over them in the listed order, as
+        ``NamedSharding`` lays it out. Every split dim must divide."""
+        if len(spec) > x.ndim:
+            raise ValueError(f"{name}: spec {tuple(spec)} has more entries "
+                             f"than the {x.ndim} dims of {tuple(x.shape)}")
+        for dim, part in enumerate(spec):
+            if part is None:
+                continue
+            names = (part,) if isinstance(part, str) else tuple(part)
+            n, i = 1, 0
+            for a in names:
+                if a not in self.shape:
+                    raise ValueError(f"{name}: axis {a!r} is not in the mesh "
+                                     f"{self.shape}")
+                n *= self.shape[a]
+                i = i * self.shape[a] + self.coords[a]
+            if x.shape[dim] % n:
+                raise ValueError(f"{name}: dim {dim} of {tuple(x.shape)} "
+                                 f"does not split over {names} ({n} ways)")
+            per = x.shape[dim] // n
+            x = x.narrow(dim, i * per, per)
+        return x
 
     # the JAX package's sharding constraints: each rank holds its local
     # tensor, so there is nothing to constrain
@@ -166,6 +226,23 @@ class DistContext:
     def vocab_parallel(self, cfg: ModelConfig) -> bool:
         return (cfg.vocab_parallel and self.model_size > 1
                 and cfg.padded_vocab % self.model_size == 0)
+
+    # the collectives of a layer computed per model rank (the
+    # expert-parallel MoE), with the gradients of the shard_map's
+    def sum_over_model(self, x):
+        """The sum of ``x`` over ``model``; its gradient as it is."""
+        return _SumOver.apply(x, self.comms["model"])
+
+    def replicated_over_model(self, x):
+        """``x``, used by each model rank on its own part; its gradient
+        summed over ``model``."""
+        return _Replicated.apply(x, self.comms["model"])
+
+    def once_over_model(self, x):
+        """``x``, which every model rank computes alike; its gradient
+        divided by the model size, so that the sum of a
+        ``replicated_over_model`` input's gradient counts it once."""
+        return _OnceOver.apply(x, self.model_size)
 
     def _slice(self, table, cfg: ModelConfig):
         """(this rank's rows of the (padded_vocab, D) table, their first

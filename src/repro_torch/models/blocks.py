@@ -25,8 +25,8 @@ autograd's through its torch ops.
 The ``dist`` argument is the port's ``distributed.DistContext``: each
 rank holds its local tensors, so the blocks' sharding constraints are
 identities and attention, rwkv6 and Mamba need nothing of it. The
-expert-parallel MoE (``moe_apply_ep``) is not ported yet (``ROADMAP.md``
-Queue 1): a MoE block given a ``dist`` whose config asks for it raises.
+expert-parallel MoE (``moe_apply_ep``) runs the rank's experts and sums
+the partial outputs over ``dist``'s ``model`` ranks.
 """
 from __future__ import annotations
 
@@ -44,20 +44,6 @@ from repro_torch.kernels.rwkv6.ops import wkv6_bshn
 Params = dict[str, Any]
 
 NEG_INF = -1e30
-
-
-def unported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP.md {item})")
-
-
-def _no_dist(dist) -> None:
-    """The hook of the expert-parallel MoE (``moe_apply_ep``), which is
-    not ported: raises when given a ``dist``."""
-    if dist is not None:
-        raise unported("the expert-parallel MoE (moe_apply_ep, "
-                       "moe_shard='ep_a2a' under a dist)",
-                       "Queue 1, item 7")
 
 
 # --------------------------------------------------------------------------
@@ -250,6 +236,11 @@ def attn_apply(params: Params, cfg: ModelConfig, x, positions, *,
     package returns a new one): the one-hot update keeps its add
     semantics, the ``dus`` update is an indexed write. Returns (out,
     cache).
+
+    ``dist`` is not read. Each rank holds the whole cache of its rows, so
+    the JAX package's ``decode_attn="flashdecode"`` (the cache sharded
+    over ``model``, the softmax reduced across it) is the same function
+    as the plain path computed here.
     """
     H, KV, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     b, s, _ = x.shape
@@ -390,6 +381,84 @@ def _top_k(probs, k: int):
     return vals[..., :k], idx[..., :k]
 
 
+def _route(xg, router, cfg: ModelConfig):
+    """The router over groups ``xg`` (G, T, D): (probs (G, T, E) f32,
+    renormalised top-k weights and experts (G, T, K), the one-hot
+    assignment (G, T, K, E), each (token, k)'s place in its expert's
+    queue (G, T, K) int64).
+
+    The place is the JAX package's cumsum of the one-hot over the
+    (token, k) axis, in int64 (the same counts; a float cumsum on the
+    card has no deterministic implementation), as the last axis of a
+    (G, E, T*K) copy: a scan along a middle axis runs one thread per
+    (group, expert) down T*K rows on the card."""
+    E, K = cfg.moe.n_experts, cfg.moe.top_k
+    groups, gtok, _ = xg.shape
+    logits = (xg @ router.to(_dtype(cfg))).float()              # (G,T,E)
+    probs = torch.softmax(logits, dim=-1)
+    top_p, top_e = _top_k(probs, K)                              # (G,T,K)
+    top_p = top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9)
+    onehot = F.one_hot(top_e, E)                                 # (G,T,K,E)
+    flat = onehot.reshape(groups, gtok * K, E)
+    pos = flat.transpose(1, 2).contiguous().cumsum(-1).transpose(1, 2) \
+        - flat
+    pos = (pos * flat).sum(-1).reshape(groups, gtok, K)
+    return probs, top_p, top_e, onehot, pos
+
+
+def _dispatch(slot, vals, n_slots: int, empty: int):
+    """The (G, n_slots) dispatch table: each slot takes the value of the
+    last (token, k) in flat order that writes it (``slot``, ``vals``:
+    (G, T*K)), ``empty`` where none does. That is the JAX package's
+    scatter on XLA's CPU (the last write wins); a scatter with repeated
+    indices has no stated order on the card, so the port takes an
+    ``amax`` of the flat index per slot."""
+    groups, n = slot.shape
+    order = torch.arange(n, device=slot.device).expand(groups, n)
+    last = torch.full((groups, n_slots), -1, dtype=torch.long,
+                      device=slot.device)
+    last.scatter_reduce_(1, slot, order, "amax")
+    return torch.where(last >= 0, vals.gather(1, last.clamp_min(0)), empty)
+
+
+def _experts(xg, dispatch, w_gate, w_up, w_down, cdt):
+    """The SwiGLU experts over their slots: (G, E*C, D) outputs of the
+    (E, D, F) / (E, F, D) weights for the tokens ``dispatch`` (G, E*C)
+    names (the sentinel ``T`` reads a zero row)."""
+    groups, gtok, d = xg.shape
+    E = w_gate.shape[0]
+    xpad = torch.cat([xg, xg.new_zeros(groups, 1, d)], dim=1)
+    rows = torch.arange(groups, device=xg.device)[:, None]
+    expert_in = xpad[rows, dispatch].reshape(groups, E, -1, d)
+    h_g = torch.einsum("gecd,edf->gecf", expert_in, w_gate.to(cdt))
+    h_u = torch.einsum("gecd,edf->gecf", expert_in, w_up.to(cdt))
+    out = torch.einsum("gecf,efd->gecd", F.silu(h_g) * h_u, w_down.to(cdt))
+    return out.reshape(groups, -1, d)
+
+
+def _combine(expert_out, dispatch, slot, vals, keep, top_p):
+    """Each kept (token, k)'s weighted expert output, gathered from its
+    slot where the table still names that token, summed over k in f32:
+    (G, T, D) f32, the JAX package's scatter-add over slots without
+    atomics. The product is of the gathered outputs (upcast exactly) and
+    their f32 weights; autograd keeps the gathered outputs in their own
+    type."""
+    groups, gtok, K = top_p.shape
+    rows = torch.arange(groups, device=slot.device)[:, None]
+    mine = keep.reshape(groups, -1) & (dispatch.gather(1, slot) == vals)
+    w = torch.where(mine, top_p.reshape(groups, -1), 0.0)
+    picked = expert_out[rows, slot]
+    return (picked * w[..., None]).reshape(groups, gtok, K, -1).sum(2)
+
+
+def _aux_loss(probs, onehot, cfg: ModelConfig):
+    """Switch-style load balancing over every group and token."""
+    E, K = cfg.moe.n_experts, cfg.moe.top_k
+    me = probs.mean(dim=(0, 1))                                  # (E,)
+    ce = onehot.sum(dim=2).float().mean(dim=(0, 1))  # fraction routed
+    return E * torch.sum(me * ce / K)
+
+
 def moe_apply(params: Params, cfg: ModelConfig, x):
     """x: (B, S, D) -> (y, aux_loss), the JAX package's GShard dispatch.
 
@@ -404,18 +473,13 @@ def moe_apply(params: Params, cfg: ModelConfig, x):
     kept token holds that slot, XLA's CPU scatter keeps the last write in
     flat (token, k) order, so a later dropped entry takes the slot and
     the kept token loses its expert-0 output (``ROADMAP.md`` Queue 3).
-    The port reproduces that rule on both devices: each slot takes the
-    value of the last (token, k) in flat order that writes it (an
-    ``amax`` of the flat index per slot), since a scatter with repeated
-    indices has no stated order on the card.
-
-    The combine, in f32, gathers each kept (token, k)'s slot where the
-    table still names that token: the same sum of weighted expert outputs
-    as the JAX package's scatter-add over slots, without atomics.
+    The port reproduces that rule on both devices (``_dispatch``).
     """
-    moe = cfg.moe
-    E, K = moe.n_experts, moe.top_k
-    cdt = _dtype(cfg)
+    E, K = cfg.moe.n_experts, cfg.moe.top_k
+    if params["w_gate"].shape[0] != E:
+        raise ValueError(f"moe_apply: expert leaves of "
+                         f"{params['w_gate'].shape[0]} experts, the config "
+                         f"has {E} (a block runs only in moe_apply_ep)")
     b, s, d = x.shape
     if s > 1:
         groups, gtok = b, s
@@ -425,64 +489,84 @@ def moe_apply(params: Params, cfg: ModelConfig, x):
         groups, gtok = b // gsz, gsz
         xg = x.reshape(groups, gtok, d)
     C = moe_capacity(cfg, gtok)
-    dev = x.device
-
-    logits = (xg @ params["router"].to(cdt)).float()            # (G,T,E)
-    probs = torch.softmax(logits, dim=-1)
-    top_p, top_e = _top_k(probs, K)                              # (G,T,K)
-    top_p = top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9)
-
-    # position of each (token, k) inside its expert queue: the JAX
-    # package's cumsum of the one-hot over the (token, k) axis, in int64
-    # (the same counts; a float cumsum on the card has no deterministic
-    # implementation), as the last axis of a (G, E, T*K) copy: a scan
-    # along a middle axis runs one thread per (group, expert) down
-    # T*K rows on the card
-    onehot = F.one_hot(top_e, E)                                 # (G,T,K,E)
-    flat = onehot.reshape(groups, gtok * K, E)
-    pos = flat.transpose(1, 2).contiguous().cumsum(-1).transpose(1, 2) \
-        - flat
-    pos = (pos * flat).sum(-1).reshape(groups, gtok, K)
+    probs, top_p, top_e, onehot, pos = _route(xg, params["router"], cfg)
     keep = pos < C
     # the slot each (token, k) writes, flat over (E, C); dropped ones all
     # write the sentinel into (0, C - 1)
-    slot = torch.where(keep, top_e * C + pos, C - 1).reshape(
-        groups, gtok * K)
-    tok_ids = torch.arange(gtok, device=dev)[None, :, None].expand(
+    slot = torch.where(keep, top_e * C + pos, C - 1).reshape(groups, -1)
+    tok_ids = torch.arange(gtok, device=x.device)[None, :, None].expand(
         groups, gtok, K)
-    vals = torch.where(keep, tok_ids, gtok).reshape(groups, gtok * K)
-    order = torch.arange(gtok * K, device=dev).expand(groups, gtok * K)
-    last = torch.full((groups, E * C), -1, dtype=torch.long, device=dev)
-    last.scatter_reduce_(1, slot, order, "amax")
-    dispatch = torch.where(last >= 0, vals.gather(1, last.clamp_min(0)),
-                           gtok)                                 # (G, E*C)
-
-    # gather expert inputs (the sentinel reads the zero row)
-    xpad = torch.cat([xg, xg.new_zeros(groups, 1, d)], dim=1)
-    rows = torch.arange(groups, device=dev)[:, None]
-    expert_in = xpad[rows, dispatch].reshape(groups, E, C, d)
-    h_g = torch.einsum("gecd,edf->gecf", expert_in,
-                       params["w_gate"].to(cdt))
-    h_u = torch.einsum("gecd,edf->gecf", expert_in, params["w_up"].to(cdt))
-    expert_out = torch.einsum("gecf,efd->gecd", F.silu(h_g) * h_u,
-                              params["w_down"].to(cdt))
-
-    # combine: each kept (token, k) whose slot still names it
-    mine = keep.reshape(groups, gtok * K) & (dispatch.gather(1, slot)
-                                             == vals)
-    w = torch.where(mine, top_p.reshape(groups, gtok * K), 0.0)
-    # the f32 product of the gathered outputs (upcast exactly) and their
-    # f32 weights; autograd keeps the gathered outputs in their own type
-    picked = expert_out.reshape(groups, E * C, d)[rows, slot]
-    y = (picked * w[..., None]).reshape(groups, gtok, K, d).sum(2).to(cdt)
-
-    # load-balancing auxiliary loss (Switch-style)
-    me = probs.mean(dim=(0, 1))                                  # (E,)
-    ce = onehot.sum(dim=2).float().mean(dim=(0, 1))  # fraction routed
-    aux = E * torch.sum(me * ce / K)
+    vals = torch.where(keep, tok_ids, gtok).reshape(groups, -1)
+    dispatch = _dispatch(slot, vals, E * C, gtok)
+    expert_out = _experts(xg, dispatch, params["w_gate"], params["w_up"],
+                          params["w_down"], _dtype(cfg))
+    y = _combine(expert_out, dispatch, slot, vals, keep, top_p).to(
+        _dtype(cfg))
     if s == 1:
         y = y.reshape(b, s, d)
-    return y, aux
+    return y, _aux_loss(probs, onehot, cfg)
+
+
+def moe_apply_ep(params: Params, cfg: ModelConfig, x, dist):
+    """Expert-parallel MoE over ``dist``'s ``model`` ranks, the JAX
+    package's ``shard_map`` of ``cfg.moe_shard == "ep_a2a"``.
+
+    Every model rank holds the same (B_loc, S, D) tokens (they are split
+    over the dp axes only) and routes them as ONE group of B_loc * S, for
+    prefill and decode alike, at ``moe_capacity(cfg, B_loc * S)``. Places
+    are taken in the global expert queues; rank m keeps the entries of
+    its experts ``[m * E_loc, (m + 1) * E_loc)`` within the capacity, and
+    every other entry (dropped, or another rank's) writes the sentinel
+    into (local expert 0, slot C - 1), the last write in flat order
+    winning, as ``moe_apply``'s clobber (``_dispatch``): so the kept token
+    in that slot loses its output whenever a later non-local entry
+    follows it. Each rank runs its experts and combines in f32; the f32
+    partial outputs are summed over ``model`` (one (B_loc, S, D)
+    allreduce a layer), then cast to the compute dtype. Where TP <= 1 or
+    E % TP it is ``moe_apply``.
+
+    The expert leaves are the whole (E, D, F) / (E, F, D), from which the
+    rank takes its block, or the block alone (E_loc, ...), as
+    ``DistContext.shard_leaf`` cuts them by ``sharding.param_pspecs``.
+
+    Gradients are ``jax.grad``'s through the JAX package's ``shard_map``:
+    the output's gradient reaches every rank as it is, and x's and the
+    router's are summed over ``model`` (each rank used them for its own
+    experts). Every model rank computes the same aux loss, so its
+    gradient is divided by TP before that sum, to count once. A whole
+    expert leaf gets the gradient of the rank's block only: the caller
+    sums it over ``model`` (``train.steps``). The aux is the rank's own
+    rows'; the JAX package returns data shard 0's on every shard
+    (``ROADMAP.md`` Queue 3), though its gradient is the shards' mean.
+    """
+    E, K = cfg.moe.n_experts, cfg.moe.top_k
+    tp = dist.model_size
+    if tp <= 1 or E % tp:
+        return moe_apply(params, cfg, x)
+    e_loc = E // tp
+    lo = dist.axis_index("model") * e_loc
+    ws = [params[k] for k in ("w_gate", "w_up", "w_down")]
+    if ws[0].shape[0] == E:
+        ws = [w[lo:lo + e_loc] for w in ws]
+    elif ws[0].shape[0] != e_loc:
+        raise ValueError(f"moe_apply_ep: expert leaves of {ws[0].shape[0]} "
+                         f"experts: {E} whole or {e_loc} a model rank")
+    b, s, d = x.shape
+    gtok = b * s
+    xg = dist.replicated_over_model(x).reshape(1, gtok, d)
+    probs, top_p, top_e, onehot, pos = _route(
+        xg, dist.replicated_over_model(params["router"]), cfg)
+    C = moe_capacity(cfg, gtok)
+    keep = (pos < C) & (top_e >= lo) & (top_e < lo + e_loc)
+    slot = torch.where(keep, (top_e - lo) * C + pos, C - 1).reshape(1, -1)
+    tok_ids = torch.arange(gtok, device=x.device)[None, :, None].expand(
+        1, gtok, K)
+    vals = torch.where(keep, tok_ids, gtok).reshape(1, -1)
+    dispatch = _dispatch(slot, vals, e_loc * C, gtok)
+    expert_out = _experts(xg, dispatch, *ws, _dtype(cfg))
+    out = _combine(expert_out, dispatch, slot, vals, keep, top_p)
+    y = dist.sum_over_model(out).reshape(b, s, d).to(_dtype(cfg))
+    return y, dist.once_over_model(_aux_loss(probs, onehot, cfg))
 
 
 # --------------------------------------------------------------------------

@@ -20,9 +20,9 @@ gradient is the flash kernel's torch-op backward
 the mesh: where ``dist.vocab_parallel(cfg)``, the embedding lookup, the
 cross-entropy of ``loss_fn`` and the greedy token of ``decode_step``
 (``decode_return="token"``) run on the rank's vocab slice and reduce
-over its ``model`` communicator, as the JAX package's ``shard_map``s do.
-The expert-parallel MoE under a ``dist`` is not ported (``ROADMAP.md``
-Queue 1).
+over its ``model`` communicator, as the JAX package's ``shard_map``s do;
+under ``moe_shard="ep_a2a"`` a MoE block runs the rank's experts alone
+(``blocks.moe_apply_ep``) and sums the partial outputs over ``model``.
 """
 from __future__ import annotations
 
@@ -136,6 +136,12 @@ def init(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> Params:
     return params
 
 
+def param_specs(cfg: ModelConfig) -> Params:
+    """The parameters' shapes and dtypes without memory: ``init`` on the
+    ``meta`` device (the JAX package's ``jax.eval_shape`` of its init)."""
+    return init(cfg, device="meta")
+
+
 def params_from_numpy(cfg: ModelConfig, tree, device="cuda") -> Params:
     """The port's parameters from the JAX package's tree of numpy arrays
     (``jax.tree.map(np.asarray, repro.models.lm.init(cfg, key))``). Every
@@ -204,6 +210,12 @@ def decode_state_init(cfg: ModelConfig, batch: int, cache_len: int, *,
                                           dtype=cdt, device=device)
         state.append(st)
     return tuple(state)
+
+
+def decode_state_specs(cfg: ModelConfig, batch: int, cache_len: int):
+    """``decode_state_init``'s tree on the ``meta`` device: shapes and
+    dtypes without memory."""
+    return decode_state_init(cfg, batch, cache_len, device="meta")
 
 
 def _kv_cache_as_the_reference(cfg: ModelConfig, state) -> None:
@@ -297,8 +309,8 @@ def _apply_ffn(bp, cfg, blk, h, state, dist):
     if blk.ffn == "dense":
         return B.ffn_apply(bp["ffn"], cfg, h), None
     if blk.ffn == "moe":
-        if cfg.moe_shard == "ep_a2a":
-            B._no_dist(dist)
+        if cfg.moe_shard == "ep_a2a" and dist is not None:
+            return B.moe_apply_ep(bp["ffn"], cfg, h, dist)
         return B.moe_apply(bp["ffn"], cfg, h)
     if blk.ffn != "cmix":
         raise ValueError(blk.ffn)

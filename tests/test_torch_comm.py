@@ -6,6 +6,8 @@ reference treats them as deterministic — the 1 MiB copy budgets among
 them. One test runs the port's ``run_processes`` (``spawn``)."""
 import functools
 import json
+import subprocess
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -451,3 +453,39 @@ def test_collectives_above_the_lease_cap_run_in_pieces():
             got[0][1], padded[chunk * rows:(chunk + 1) * rows])
         np.testing.assert_array_equal(got[0][2], np.concatenate(
             [base[:sizes[2]] + k for k in range(n)]))
+
+
+# the reference at the same input: 4 threads on a 2 MiB pool, an f32
+# allreduce of 70,001 elements. It runs in a subprocess, whose exit ends
+# the ranks that still spin when run_threads gives up on them.
+_REF_ABOVE_CAP = """
+import numpy as np
+import repro.core as rc
+
+def prog(env):
+    x = np.arange(70_001, dtype=np.float32) % 251 + env.rank
+    return env.comm.allreduce(x)
+
+try:
+    rc.run_threads(4, prog, pool_bytes=2 << 20, timeout=5)
+    print("RAN")
+except TimeoutError as e:
+    print("TIMEOUT", e)
+"""
+
+
+def test_reference_fails_above_the_lease_cap():
+    """Where the port runs in pieces (the test above), the reference's
+    allreduce leases the whole payload: one rank raises ``ArenaFullError``
+    ("heap exhausted") and the others never finish, so ``run_threads``
+    times out. The port departs from it on purpose (``ROADMAP.md``
+    Queue 3)."""
+    src = str(Path(__file__).resolve().parents[1] / "src")
+    out = subprocess.run([sys.executable, "-c", _REF_ABOVE_CAP],
+                         capture_output=True, text=True, timeout=120,
+                         env={"PYTHONPATH": src, "PATH": "/usr/bin:/bin",
+                              "JAX_PLATFORMS": "cpu"})
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.startswith("TIMEOUT"), out.stdout[-2000:]
+    assert "ArenaFullError" in out.stdout
+    assert "heap exhausted" in out.stdout

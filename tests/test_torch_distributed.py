@@ -24,7 +24,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 import repro.core as ref_core  # noqa: E402
-from repro.configs import SHAPES, get_config  # noqa: E402
+from repro.configs import SHAPES, get_config, optimized  # noqa: E402
 from repro.distributed import compression as ref_C  # noqa: E402
 from repro.distributed import host_coord as ref_hc  # noqa: E402
 from repro.models import lm as ref_lm  # noqa: E402
@@ -129,13 +129,16 @@ dist = DistContext(make_test_mesh((2, 2), ("data", "model")))
 inp = dict(np.load(sys.argv[2]))
 table, x = jnp.asarray(inp["table"]), jnp.asarray(inp["x"])
 toks = jnp.asarray(inp["toks"])
-out["vp_embed"] = np.asarray(dist.vp_embed(table, toks, vcfg))
-out["vp_ce"] = np.asarray(dist.vp_cross_entropy(table, x, toks, vcfg))
-out["vp_token"] = np.asarray(dist.vp_greedy_token(table, x[:, 0], vcfg))
-out["vp_embed_dtable"] = np.asarray(jax.grad(
-    lambda t: (dist.vp_embed(t, toks, vcfg) * inp["cot_e"]).sum())(table))
-dt, dx = jax.grad(lambda t, xx: (dist.vp_cross_entropy(
-    t, xx, toks, vcfg) * inp["cot_ce"]).sum(), argnums=(0, 1))(table, x)
+out["vp_embed"] = np.asarray(jax.jit(
+    lambda t, tk: dist.vp_embed(t, tk, vcfg))(table, toks))
+out["vp_ce"] = np.asarray(jax.jit(
+    lambda t, xx, tk: dist.vp_cross_entropy(t, xx, tk, vcfg))(table, x, toks))
+out["vp_token"] = np.asarray(jax.jit(
+    lambda t, xx: dist.vp_greedy_token(t, xx, vcfg))(table, x[:, 0]))
+out["vp_embed_dtable"] = np.asarray(jax.jit(jax.grad(
+    lambda t: (dist.vp_embed(t, toks, vcfg) * inp["cot_e"]).sum()))(table))
+dt, dx = jax.jit(jax.grad(lambda t, xx: (dist.vp_cross_entropy(
+    t, xx, toks, vcfg) * inp["cot_ce"]).sum(), argnums=(0, 1)))(table, x)
 out["vp_ce_dtable"], out["vp_ce_dx"] = np.asarray(dt), np.asarray(dx)
 
 # 3. psum_int8 over two pods
@@ -144,8 +147,163 @@ got = jax.shard_map(lambda a: psum_int8(a[0], "pod")[None], mesh=pods,
                     in_specs=P("pod"), out_specs=P("pod"))(
     jnp.asarray(inp["pod_inputs"]))
 out["psum_int8"] = np.asarray(got)
+
+# 4. shard_leaf: each device's block of a NamedSharding, by device id
+import json
+from jax.sharding import NamedSharding
+for mshape, axes in (((2, 2), ("data", "model")),
+                     ((2, 2, 2), ("pod", "data", "model"))):
+    m = make_test_mesh(mshape, axes)
+    for i, spec in enumerate(SHARD_SPECS[len(mshape)]):
+        arr = jax.device_put(jnp.asarray(inp["leaf"]),
+                             NamedSharding(m, P(*spec)))
+        for sh in arr.addressable_shards:
+            out[f"leaf_{len(mshape)}_{i}_{sh.device.id}"] = np.asarray(sh.data)
+
+# 5. moe_apply_ep on data 2 x model 2 (dist above), y, aux and jax.grad
+from repro.models import blocks as B
+ecfg = dataclasses.replace(get_config("granite-moe-1b-a400m").reduced(),
+                           compute_dtype="float32")
+ep_p = {k: jnp.asarray(inp["ep_" + k]) for k in EP_KEYS}
+for cf in EP_CAPACITY:
+    c = dataclasses.replace(ecfg, moe=dataclasses.replace(ecfg.moe,
+                                                          capacity_factor=cf))
+    for tag in ("prefill", "decode"):
+        w = jnp.asarray(inp[f"ep_w_{tag}"])
+
+        def f(p, x):
+            y, aux = B.moe_apply_ep(p, c, x, dist)
+            return (y * w).sum() + 3 * aux, (y, aux)
+
+        (_, (y, aux)), (gp, gx) = jax.jit(jax.value_and_grad(
+            f, argnums=(0, 1), has_aux=True))(ep_p,
+                                              jnp.asarray(inp[f"ep_x_{tag}"]))
+        key = f"ep_{cf}_{tag}"
+        out[key + "_y"], out[key + "_aux"] = np.asarray(y), np.asarray(aux)
+        out[key + "_gx"] = np.asarray(gx)
+        for k in EP_KEYS:
+            out[key + "_g_" + k] = np.asarray(gp[k])
+
+# 6. the serve steps on data 2 x model 2: granite-moe reduced under the
+# JAX package's serving flags (optimized), f32, prefill then decode
+from repro.configs import InputShape, optimized
+from repro.train import steps as ST
+scfg = dataclasses.replace(
+    optimized(get_config("granite-moe-1b-a400m").reduced()), **SERVE_CFG)
+mesh = make_test_mesh((2, 2), ("data", "model"))
+sp = lm.init(scfg, jax.random.key(SERVE_SEED))
+toks = jnp.asarray(inp["serve_toks"])
+pre = ST.make_serve_prefill(scfg, InputShape("p", "prefill", *SERVE_PREFILL),
+                            mesh)
+out["serve_logits"] = np.asarray(jax.jit(
+    pre.fn, in_shardings=pre.in_shardings,
+    out_shardings=pre.out_shardings)(sp, {"tokens": toks}))
+dec = ST.make_serve_decode(scfg, InputShape("d", "decode", *SERVE_DECODE),
+                           mesh)
+step = jax.jit(dec.fn, in_shardings=dec.in_shardings,
+               out_shardings=dec.out_shardings)
+state = lm.decode_state_init(scfg, SERVE_DECODE[1], SERVE_DECODE[0])
+tok, pos = toks[:, :1], jnp.zeros((SERVE_DECODE[1],), jnp.int32)
+for i in range(SERVE_STEPS):
+    got, state = step(sp, state, {"tokens": tok}, pos)
+    out[f"serve_token_{i}"] = np.asarray(got)
+    tok, pos = got[:, None], pos + 1
+tr = ST.make_train_step(scfg, InputShape("t", "train", *SERVE_PREFILL), mesh)
+out["serve_specs"] = np.array(json.dumps([
+    [list(x) if isinstance(x, tuple) else x for x in s.spec]
+    for ss in (pre, dec, tr) for s in jax.tree.leaves(
+        (ss.in_shardings, ss.out_shardings))]))
+
+# 7. make_train_step on data 2 x model 2: granite-moe reduced in f32,
+# ep_a2a, the vocab split, capacity factor 8; the gradient of its loss
+# (jax.grad under the step's own dist and shardings), then the step
+tcfg = dataclasses.replace(get_config("granite-moe-1b-a400m").reduced(),
+                           compute_dtype="float32")
+tparams = lm.init(tcfg, jax.random.key(DIST_STEP_SEED))
+tshape = dataclasses.replace(SHAPES["train_4k"], seq_len=DIST_STEP[0],
+                             global_batch=DIST_STEP[1])
+tbatch = {k: jnp.asarray(v) for k, v in
+          D.SyntheticLM(D.for_model(tcfg, tshape)).batch(0).items()}
+tcfg = dataclasses.replace(tcfg, moe_shard="ep_a2a", vocab_parallel=True,
+                           moe=dataclasses.replace(tcfg.moe,
+                                                   capacity_factor=8.0))
+tr = ST.make_train_step(tcfg, tshape, mesh)
+tdist = ST.make_dist(tcfg, tshape, mesh)
+tg = jax.jit(jax.grad(lambda p, b: lm.loss_fn(p, tcfg, b, dist=tdist)[0]),
+             in_shardings=tr.in_shardings[::2])(tparams, tbatch)
+tp2, _, tm = jax.jit(tr.fn, in_shardings=tr.in_shardings,
+                     out_shardings=tr.out_shardings)(
+    tparams, opt.init(opt.for_model(tcfg), tparams), tbatch)
+for i, (g, p2) in enumerate(zip(jax.tree.leaves(tg), jax.tree.leaves(tp2))):
+    out[f"dist_grad_{i}"], out[f"dist_param_{i}"] = (np.asarray(g),
+                                                     np.asarray(p2))
+out["dist_loss"], out["dist_aux"] = (np.asarray(tm["loss"]),
+                                     np.asarray(tm["aux"]))
+out["dist_ga"] = np.asarray(tr.grad_accum)
 np.savez(sys.argv[1], **out)
 """
+
+
+# shard_leaf against NamedSharding: a split dim, a dim over two axes in
+# both orders, a replicated dim, on the (2, 2) and (2, 2, 2) meshes
+SHARD_SPECS = {2: [("data", None), (("model", "data"), None),
+                   (None, "model"), (None, None), ("model", ("data",))],
+               3: [(("pod", "data"), "model"), (("model", "pod"), None),
+                   (None, ("data", "model", "pod"))]}
+# moe_apply_ep on data 2 x model 2: granite-moe reduced (4 experts,
+# top 2), f32, 4 rows of 16 tokens (prefill: one group of 32 a dp rank)
+# and 4 rows of one (decode), the router biased to experts 0 and 2 (each
+# model rank's first) so that their queues overflow at the published
+# capacity factor and the slot clobber shows; at 8.0 nothing drops.
+EP_KEYS = ("router", "w_gate", "w_up", "w_down")
+EP_CAPACITY = (1.25, 8.0)
+EP_B, EP_S = 4, 16
+# y and each gradient leaf within EP_TOL x its largest |value| (f32 sums
+# over the slots and over model in other orders); aux within EP_TOL
+EP_TOL = 1e-5
+# the serve steps: granite-moe reduced, optimized's serving flags, f32
+# (a float32 KV cache: kv_update="dus" takes no other under f32), the
+# vocab split over model; prefill (seq, batch) and decode (cache, batch)
+SERVE_CFG = dict(compute_dtype="float32", kv_cache_dtype="float32",
+                 vocab_parallel=True)
+SERVE_SEED = 2
+SERVE_PREFILL = (8, 4)
+SERVE_DECODE = (16, 4)
+SERVE_STEPS = 3
+SERVE_TOL = 1e-4              # logits, absolute
+# make_train_step under a dist: (seq, global batch) and the weights' seed
+DIST_STEP = (16, 4)
+DIST_STEP_SEED = 4
+
+
+def _prelude() -> str:
+    """The constants the mesh program shares with this module."""
+    names = ("SHARD_SPECS", "EP_KEYS", "EP_CAPACITY", "SERVE_CFG",
+             "SERVE_SEED", "SERVE_PREFILL", "SERVE_DECODE", "SERVE_STEPS",
+             "DIST_STEP", "DIST_STEP_SEED")
+    return "".join(f"{n} = {globals()[n]!r}\n" for n in names)
+
+
+def _ep_inputs():
+    """moe_apply_ep's inputs (numpy, seeded): the expert params, x and
+    the cotangent w of a prefill and a decode shape."""
+    cfg = get_config("granite-moe-1b-a400m").reduced()
+    rng = np.random.default_rng(11)
+    D, Fd, E = cfg.d_model, cfg.d_ff, cfg.moe.n_experts
+    out = {"ep_router": 0.3 * rng.standard_normal((D, E), np.float32),
+           "ep_w_gate": rng.standard_normal((E, D, Fd), np.float32)
+           / np.sqrt(D),
+           "ep_w_up": rng.standard_normal((E, D, Fd), np.float32)
+           / np.sqrt(D),
+           "ep_w_down": rng.standard_normal((E, Fd, D), np.float32)
+           / np.sqrt(Fd)}
+    out["ep_router"][0] = [1.0, 0.0, 1.0, 0.0]
+    for tag, s in (("prefill", EP_S), ("decode", 1)):
+        x = rng.standard_normal((EP_B, s, D), np.float32)
+        x[..., 0] = 2.0
+        out[f"ep_x_{tag}"] = x
+        out[f"ep_w_{tag}"] = rng.standard_normal((EP_B, s, D), np.float32)
+    return out
 
 
 def _vp_inputs():
@@ -160,7 +318,12 @@ def _vp_inputs():
                                  dtype=np.int32),
             "cot_e": rng.standard_normal((VP_B, VP_S, D), dtype=np.float32),
             "cot_ce": rng.standard_normal((VP_B, VP_S), dtype=np.float32),
-            "pod_inputs": np.array(POD_INPUTS, np.float32)}
+            "pod_inputs": np.array(POD_INPUTS, np.float32),
+            "leaf": np.arange(8 * 16 * 8, dtype=np.float32).reshape(
+                8, 16, 8),
+            "serve_toks": rng.integers(0, 128, SERVE_PREFILL[::-1],
+                                       dtype=np.int32),
+            **_ep_inputs()}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -170,7 +333,7 @@ def _mesh_run(tmp_path_factory):
     d = tmp_path_factory.mktemp("mesh")
     np.savez(d / "inputs.npz", **_vp_inputs())
     proc = subprocess.Popen(
-        [sys.executable, "-c", _MESH_PROG, str(d / "out.npz"),
+        [sys.executable, "-c", _prelude() + _MESH_PROG, str(d / "out.npz"),
          str(d / "inputs.npz")], stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True,
         env={"PYTHONPATH": SRC, "PATH": "/usr/bin:/bin",
@@ -540,3 +703,348 @@ def test_lm_hooks_take_the_vocab_parallel_path():
         np.testing.assert_allclose(sum(r["vp"]["embed"] for r in pair),
                                    pair[0]["dense"]["embed"], rtol=1e-4,
                                    atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# shard_leaf against the JAX package's NamedSharding
+# ---------------------------------------------------------------------------
+
+def _leaf_prog(env, leaf, shape, axes):
+    dist = DistContext(env.comm, shape, axes)
+    return [dist.shard_leaf(torch.from_numpy(leaf), spec).numpy()
+            for spec in SHARD_SPECS[len(shape)]]
+
+
+@pytest.mark.parametrize("shape,axes", [((2, 2), ("data", "model")),
+                                        ((2, 2, 2), ("pod", "data", "model"))])
+def test_shard_leaf_matches_named_sharding(shape, axes, mesh_ref):
+    """Rank r's block of an (8, 16, 8) leaf under each spec of
+    ``SHARD_SPECS`` (a split dim, a dim over two or three axes in the
+    listed order, a replicated dim) is device r's addressable shard of
+    ``jax.device_put(x, NamedSharding(make_test_mesh(...), spec))``,
+    exactly."""
+    leaf = _vp_inputs()["leaf"]
+    res = port_core.run_threads(
+        int(np.prod(shape)),
+        functools.partial(_leaf_prog, leaf=leaf, shape=shape, axes=axes),
+        pool_bytes=POOL, device="cpu")
+    for rank, blocks in enumerate(res):
+        for i, got in enumerate(blocks):
+            np.testing.assert_array_equal(
+                got, mesh_ref[f"leaf_{len(shape)}_{i}_{rank}"])
+
+
+# ---------------------------------------------------------------------------
+# moe_apply_ep on data 2 x model 2 against the JAX package's shard_map
+# ---------------------------------------------------------------------------
+
+def _ep_cfg(cf: float):
+    cfg = dataclasses.replace(port_config("granite-moe-1b-a400m").reduced(),
+                              compute_dtype="float32", moe_shard="ep_a2a")
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cf))
+
+
+def _clobbered(cfg, x, router, dist) -> int:
+    """How many kept (token, k) entries of this rank lose their slot to
+    a later entry's sentinel: the queues replayed in numpy from the
+    router's choices."""
+    from repro_torch.models import blocks as B
+    d = x.shape[-1]
+    _, _, top_e, _, _ = B._route(x.reshape(1, -1, d), router, cfg)
+    top_e = top_e.reshape(-1).numpy()
+    E, T = cfg.moe.n_experts, top_e.size // cfg.moe.top_k
+    e_loc = E // dist.model_size
+    lo = dist.axis_index("model") * e_loc
+    C = B.moe_capacity(cfg, T)
+    count, owner, kept = np.zeros(E, int), {}, []
+    for i, e in enumerate(top_e):
+        pos, count[e] = count[e], count[e] + 1
+        keep = pos < C and lo <= e < lo + e_loc
+        slot = ((e - lo) * C + pos) if keep else C - 1
+        owner[slot] = i
+        if keep:
+            kept.append((i, slot))
+    return sum(owner[slot] != i for i, slot in kept)
+
+
+def _ep_prog(env, inp):
+    """moe_apply_ep on the rank's rows with whole expert leaves, and the
+    gradients of sum(y * w) + 3 aux / dp (the JAX package's jax.grad
+    takes the mean of the data shards' aux gradients); at 1.25 also with
+    the rank's expert blocks alone (``shard_experts``' form)."""
+    from repro_torch.distributed.sharding import P
+    from repro_torch.models import blocks as B
+    dist = DistContext(env.comm, (2, 2), ("data", "model"))
+    rows = slice(dist.dp_index * EP_B // 2, (dist.dp_index + 1) * EP_B // 2)
+    out = {"rows": rows, "model": dist.axis_index("model")}
+    for cf in EP_CAPACITY:
+        cfg = _ep_cfg(cf)
+        for tag in ("prefill", "decode"):
+            for form in ("whole", "block") if cf == 1.25 else ("whole",):
+                p = {k: torch.from_numpy(inp["ep_" + k]) for k in EP_KEYS}
+                if form == "block":
+                    p = {k: v if k == "router" else dist.shard_leaf(
+                        v, P("model")) for k, v in p.items()}
+                p = {k: v.clone().requires_grad_(True) for k, v in p.items()}
+                x = torch.from_numpy(inp[f"ep_x_{tag}"][rows]).requires_grad_(
+                    True)
+                y, aux = B.moe_apply_ep(p, cfg, x, dist)
+                w = torch.from_numpy(inp[f"ep_w_{tag}"][rows])
+                ((y * w).sum() + 3 * aux / dist.dp_size).backward()
+                out[(cf, tag, form)] = {
+                    "y": y.detach().numpy(), "aux": float(aux.detach()),
+                    "gx": x.grad.numpy(),
+                    "g": {k: v.grad.numpy() for k, v in p.items()}}
+            out[(cf, tag, "clobbered")] = _clobbered(
+                cfg, torch.from_numpy(inp[f"ep_x_{tag}"][rows]),
+                torch.from_numpy(inp["ep_router"]), dist)
+    return out
+
+
+@pytest.fixture(scope="module")
+def port_ep():
+    return port_core.run_threads(4, functools.partial(
+        _ep_prog, inp=_vp_inputs()), pool_bytes=POOL, device="cpu")
+
+
+def _within(got, want, tol=EP_TOL) -> None:
+    want = np.asarray(want)
+    assert float(np.abs(got - want).max()) <= tol * max(
+        float(np.abs(want).max()), 1e-30)
+
+
+@pytest.mark.parametrize("tag", ["prefill", "decode"])
+@pytest.mark.parametrize("cf", EP_CAPACITY)
+def test_moe_apply_ep_matches_jax_shard_map(cf, tag, port_ep, mesh_ref):
+    """moe_apply_ep on data 2 x model 2 against the JAX package's
+    shard_map on make_test_mesh((2, 2)): each rank's y (its rows, both
+    model ranks alike) and the gradients of sum(y * w) + 3 aux: x's (the
+    rank's rows, summed over model inside), the router's (summed over
+    the data ranks) and each expert leaf's (the rank's block, summed
+    over all four), each within EP_TOL x its largest |value|. At the
+    published capacity factor the slot clobber happens on every rank
+    (prefill) and is reproduced; at 8.0 nothing drops."""
+    key = f"ep_{cf}_{tag}"
+    sums = {k: 0 for k in EP_KEYS}
+    for r in port_ep:
+        got = r[(cf, tag, "whole")]
+        _within(got["y"], mesh_ref[key + "_y"][r["rows"]])
+        _within(got["gx"], mesh_ref[key + "_gx"][r["rows"]])
+        for k in EP_KEYS:
+            if k != "router" or r["model"] == 0:
+                sums[k] = sums[k] + got["g"][k]
+    for k in EP_KEYS:
+        _within(sums[k], mesh_ref[key + "_g_" + k])
+    clobbered = [r[(cf, tag, "clobbered")] for r in port_ep]
+    if cf == 8.0:
+        assert clobbered == [0] * 4
+    elif tag == "prefill":
+        assert min(clobbered) > 0, clobbered
+
+
+def test_moe_apply_ep_aux_is_data_shard_0s(port_ep, mesh_ref):
+    """The JAX package's moe_apply_ep returns data shard 0's aux loss on
+    every shard (``out_specs=P()`` without a check); its gradient is the
+    mean of the shards' (the test above). The port returns each rank's
+    own rows' aux: data 0's ranks give the JAX value, data 1's another
+    (``ROADMAP.md`` Queue 3)."""
+    for cf in EP_CAPACITY:
+        want = float(mesh_ref[f"ep_{cf}_prefill_aux"])
+        by_data = {}
+        for r in port_ep:
+            by_data.setdefault(r["rows"].start, set()).add(
+                r[(cf, "prefill", "whole")]["aux"])
+        assert all(len(v) == 1 for v in by_data.values())   # over model
+        (aux0,), (aux1,) = by_data[0].copy(), by_data[EP_B // 2].copy()
+        assert abs(aux0 - want) <= EP_TOL * want
+        assert abs(aux1 - want) > 1e-3
+
+
+def test_moe_apply_ep_takes_expert_blocks(port_ep):
+    """Given the rank's expert blocks alone (E_loc, ...), moe_apply_ep
+    computes the same y, aux and x and router gradients as from the whole
+    leaves, and the blocks' gradients are the whole leaves' gradients in
+    the rank's slice (zeros elsewhere)."""
+    for r in port_ep:
+        for tag in ("prefill", "decode"):
+            whole, block = (r[(1.25, tag, f)] for f in ("whole", "block"))
+            np.testing.assert_array_equal(block["y"], whole["y"])
+            assert block["aux"] == whole["aux"]
+            np.testing.assert_array_equal(block["gx"], whole["gx"])
+            np.testing.assert_array_equal(block["g"]["router"],
+                                          whole["g"]["router"])
+            m = r["model"]
+            for k in EP_KEYS[1:]:
+                g = whole["g"][k]
+                np.testing.assert_array_equal(block["g"][k],
+                                              g[2 * m:2 * m + 2])
+                assert not np.delete(g, [2 * m, 2 * m + 1], axis=0).any()
+
+
+# ---------------------------------------------------------------------------
+# the serve steps on data 2 x model 2 against the JAX package's mesh steps
+# ---------------------------------------------------------------------------
+
+def _serve_cfg():
+    from repro_torch.configs import optimized
+    return dataclasses.replace(optimized(
+        port_config("granite-moe-1b-a400m").reduced()), **SERVE_CFG)
+
+
+def _serve_prog(env, tree, toks):
+    """make_serve_prefill, then SERVE_STEPS greedy make_serve_decode
+    steps fed their own tokens, on the rank's rows, with the rank's
+    expert blocks (``shard_experts``)."""
+    from repro_torch.configs import InputShape
+    from repro_torch.distributed.sharding import shard_experts, spec_leaves
+    from repro_torch.train import steps as ST
+    cfg = _serve_cfg()
+    dist = DistContext(env.comm, (2, 2), ("data", "model"))
+    params = shard_experts(lm.params_from_numpy(cfg, tree, device="cpu"),
+                           cfg, dist)
+    pre = ST.make_serve_prefill(cfg, InputShape("p", "prefill",
+                                                *SERVE_PREFILL), dist)
+    dec = ST.make_serve_decode(cfg, InputShape("d", "decode", *SERVE_DECODE),
+                               dist)
+    tr = ST.make_train_step(cfg, InputShape("t", "train", *SERVE_PREFILL),
+                            dist)
+    toks = torch.from_numpy(toks)
+    out = {"rows": slice(dist.dp_index * 2, dist.dp_index * 2 + 2),
+           "logits": pre.fn(params, {"tokens": toks}).numpy(), "tokens": [],
+           "experts": tuple(params["blocks"][0]["ffn"]["w_gate"].shape),
+           "specs": [[list(x) if isinstance(x, tuple) else x for x in s]
+                     for ss in (pre, dec, tr) for s in spec_leaves(
+                         (ss.in_shardings, ss.out_shardings))]}
+    state = lm.decode_state_init(cfg, SERVE_DECODE[1] // 2, SERVE_DECODE[0],
+                                 device="cpu")
+    tok, pos = toks[:, :1], torch.zeros(SERVE_DECODE[1], dtype=torch.int32)
+    for _ in range(SERVE_STEPS):
+        local, state = dec.fn(params, state, {"tokens": tok}, pos)
+        out["tokens"].append(local.numpy())
+        # every rank feeds back the global batch's tokens
+        tok = dist.comms["data"].allgather(local)[:, None]
+        pos = pos + 1
+    return out
+
+
+def test_serve_steps_match_jax_mesh_steps(mesh_ref):
+    """make_serve_prefill and make_serve_decode on data 2 x model 2
+    (granite-moe reduced under optimized's serving flags: ep_a2a,
+    greedy tokens from the split vocab, flashdecode, dus; f32) against
+    the JAX package's steps jitted on make_test_mesh((2, 2)) from the
+    same weights: each rank's prefill logits (its rows) within
+    SERVE_TOL, its greedy tokens exactly, both model ranks of a row
+    alike; each rank holds its block of the experts; the sharding trees
+    of these steps and of make_train_step are the JAX package's, leaf
+    for leaf."""
+    import json
+    cfg = dataclasses.replace(optimized(
+        get_config("granite-moe-1b-a400m").reduced()), **SERVE_CFG)
+    tree = jax.tree.map(np.asarray, ref_lm.init(cfg, jax.random.key(
+        SERVE_SEED)))
+    toks = _vp_inputs()["serve_toks"]
+    res = port_core.run_threads(4, functools.partial(
+        _serve_prog, tree=tree, toks=toks), pool_bytes=POOL, device="cpu")
+    specs = json.loads(str(mesh_ref["serve_specs"]))
+    for r in res:
+        rows = r["rows"]
+        assert float(np.abs(r["logits"] - mesh_ref["serve_logits"][
+            rows]).max()) <= SERVE_TOL
+        for i, got in enumerate(r["tokens"]):
+            np.testing.assert_array_equal(got,
+                                          mesh_ref[f"serve_token_{i}"][rows])
+        assert r["experts"][1] == cfg.moe.n_experts // 2
+        assert r["specs"] == specs
+    for a, b in (res[0], res[1]), (res[2], res[3]):
+        np.testing.assert_array_equal(a["logits"], b["logits"])
+
+
+# ---------------------------------------------------------------------------
+# make_train_step under a dist: data 2 x model 2, ep_a2a, vocab-parallel
+# ---------------------------------------------------------------------------
+
+# granite-moe reduced in f32, 4 sequences of 16 tokens, the experts
+# split over model and the vocab too, at capacity factor 8 (no token
+# drops, so the dense dispatch of one process, which groups by row, is
+# the same function); every leaf's synced gradient within STEP_GRAD_TOL
+# x its largest |g| of the JAX package's, and of one process's; the
+# params after the step within STEP_UPDATE_TOL x the leaf's largest
+# update of the JAX package's step (tests/test_torch_train.py's bound
+# for a step's params)
+STEP_GRAD_TOL = 1e-4
+STEP_UPDATE_TOL = 1e-2
+DIST_STEP_SHAPE = dataclasses.replace(SHAPES["train_4k"],
+                                      seq_len=DIST_STEP[0],
+                                      global_batch=DIST_STEP[1])
+
+
+def _dist_step_cfg():
+    return dataclasses.replace(_ep_cfg(8.0), vocab_parallel=True)
+
+
+def _dist_step_prog(env, tree, batch):
+    from repro_torch.train import steps as ST
+    cfg = _dist_step_cfg()
+    dist = DistContext(env.comm, (2, 2), ("data", "model"))
+    params = lm.params_from_numpy(cfg, tree, device="cpu")
+    step = ST.make_train_step(cfg, DIST_STEP_SHAPE, dist)
+    batch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    grads, metrics = step.grads(params, batch)
+    state = opt.init(opt.for_model(cfg), params)
+    _, _, m = step.fn(params, state, batch)
+    return {"grads": [g.numpy() for g in lm.tree_leaves(grads)],
+            "loss": float(metrics["loss"]), "aux": float(metrics["aux"]),
+            "step_loss": float(m["loss"]),
+            "params": [p.detach().numpy() for p in lm.tree_leaves(params)],
+            "ga": step.grad_accum}
+
+
+def test_train_step_under_a_dist_matches_one_process(mesh_ref):
+    """make_train_step on data 2 x model 2 (each data rank its 2 rows,
+    the experts and the vocab split over model) against the JAX
+    package's make_train_step jitted on make_test_mesh((2, 2)) from the
+    same weights and batch: after the sums over model and the mean over
+    data, every rank's gradients are equal and each leaf is within
+    STEP_GRAD_TOL x its largest |g| of jax.grad of the reference's loss
+    under its own dist (the mean of the data shards' aux gradients), and
+    of one process's step over the same 4 rows in 2 microbatches of the
+    data ranks' rows; the params after the step are the optimizer's step
+    with exactly those gradients, alike on every rank, and within
+    STEP_UPDATE_TOL x each leaf's largest update of the reference's
+    step. The loss less its aux term is the reference's (rtol
+    LOSS_RTOL); the aux term itself differs (the reference's is data
+    shard 0's, ``test_moe_apply_ep_aux_is_data_shard_0s``)."""
+    from repro_torch.train import steps as ST
+    cfg = _dist_step_cfg()
+    jcfg = dataclasses.replace(get_config("granite-moe-1b-a400m").reduced(),
+                               compute_dtype="float32")
+    tree = jax.tree.map(np.asarray, ref_lm.init(jcfg, jax.random.key(
+        DIST_STEP_SEED)))
+    batch = ref_D.SyntheticLM(ref_D.for_model(jcfg, DIST_STEP_SHAPE)).batch(0)
+    res = port_core.run_threads(4, functools.partial(
+        _dist_step_prog, tree=tree, batch=batch), pool_bytes=POOL,
+        device="cpu")
+    one = ST.make_train_step(cfg, DIST_STEP_SHAPE, None, grad_accum=2)
+    want, wm = one.grads(lm.params_from_numpy(cfg, tree, device="cpu"),
+                         {k: torch.from_numpy(v) for k, v in batch.items()})
+    assert [r["ga"] for r in res] == [int(mesh_ref["dist_ga"])] * 4 == [1] * 4
+    stepped = _update_of(cfg, tree, res[0]["grads"])
+    p0 = jax.tree.leaves(tree)
+    for r in res:
+        for i, (a, b) in enumerate(zip(r["grads"], lm.tree_leaves(want))):
+            _within(a, mesh_ref[f"dist_grad_{i}"], STEP_GRAD_TOL)
+            _within(a, b.numpy(), STEP_GRAD_TOL)
+        for i, (a, b) in enumerate(zip(r["params"], stepped)):
+            np.testing.assert_array_equal(a, b)
+            ref = mesh_ref[f"dist_param_{i}"]
+            assert float(np.abs(a - ref).max()) <= STEP_UPDATE_TOL * float(
+                np.abs(ref - p0[i]).max())
+        np.testing.assert_allclose(r["loss"], float(wm["loss"]),
+                                   rtol=LOSS_RTOL)
+        assert r["step_loss"] == r["loss"]
+        coef = 0.01                      # lm.loss_fn's aux weight
+        np.testing.assert_allclose(
+            r["loss"] - coef * r["aux"],
+            float(mesh_ref["dist_loss"]) - coef * float(mesh_ref["dist_aux"]),
+            rtol=LOSS_RTOL)

@@ -48,6 +48,23 @@ def test_import_check_covers_windows_and_serving():
         "__init__", "wire", "pages", "router", "worker", "service")} <= names
 
 
+def test_import_check_covers_the_distribution_layer():
+    """The expert-parallel MoE, the sharding specs and the step functions
+    are among the files the import check reads, and build no tensor on
+    a device of their own: the specs live on the ``meta`` device."""
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert {"src/repro_torch/distributed/sharding.py",
+            "src/repro_torch/distributed/context.py",
+            "src/repro_torch/models/blocks.py",
+            "src/repro_torch/train/steps.py"} <= names
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    cfg = get_config("granite-moe-1b-a400m")
+    assert {t.device.type for t in lm.tree_leaves(lm.param_specs(cfg))} \
+        == {t.device.type for t in lm.tree_leaves(
+            lm.decode_state_specs(cfg, 2, 8))} == {"meta"}
+
+
 def _no_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default runs there")

@@ -251,12 +251,15 @@ def test_loss_and_grads_match_jax_value_and_grad(arch):
 
 
 def test_loss_fn_refuses_dist():
-    """``loss_fn`` takes a ``DistContext`` (the vocab-parallel path is in
+    """``loss_fn`` takes a ``DistContext`` (the vocab-parallel path and
+    the expert-parallel MoE on 4 ranks are in
     tests/test_torch_distributed.py): one that is not vocab-parallel
-    gives the loss without it. It refuses only the expert-parallel MoE
-    (``moe_shard="ep_a2a"`` under a dist), which is not ported."""
+    gives the loss without it, and under the expert-parallel MoE
+    (``moe_shard="ep_a2a"``) one with a single model rank falls back to
+    ``moe_apply``: the same loss."""
     import types
-    dist = types.SimpleNamespace(vocab_parallel=lambda cfg: False)
+    dist = types.SimpleNamespace(vocab_parallel=lambda cfg: False,
+                                 model_size=1)
     _, cfg = _cfgs("smollm-135m")
     tp = lm.init(cfg, device="cpu")
     batch = {k: torch.from_numpy(v) for k, v in _train_batch(cfg).items()}
@@ -265,9 +268,8 @@ def test_loss_fn_refuses_dist():
     _, cfg = _cfgs("granite-moe-1b-a400m", moe_shard="ep_a2a")
     tp = lm.init(cfg, device="cpu")
     batch = {k: torch.from_numpy(v) for k, v in _train_batch(cfg).items()}
-    with pytest.raises(NotImplementedError, match="expert-parallel"):
-        lm.loss_fn(tp, cfg, batch, dist=dist)
-    lm.loss_fn(tp, cfg, batch)
+    assert torch.equal(lm.loss_fn(tp, cfg, batch, dist=dist)[0],
+                       lm.loss_fn(tp, cfg, batch)[0])
 
 
 # --------------------------------------------------------------------------

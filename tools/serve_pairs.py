@@ -10,13 +10,15 @@ difference between the two runs of one tree:
     python3 tools/serve_pairs.py --trees build/parent . . build/parent \\
         --arch granite-moe-1b-a400m llama3-8b --out build/pairs.json
 
-Per tree and model, at the published config from seed-0 weights in
-bf16: ``serve_batch`` at batch 4, a 128-token prompt and 32 generated
-tokens (one warm-up, then ``--reps`` runs: decode tokens/s and the
-teacher-forced prefill's seconds), and ``lm.prefill`` at 4 x 128 and
-1 x 4096 (one warm-up each, then ``--reps`` timed runs, synced). Prints
-one JSON line per tree and writes them all to ``--out``. Needs a CUDA
-card.
+Per tree and model, at the published config with ``chip_smoke.CUTS``'
+cut where it has one (jamba-1.5-large-398b: 8 layers, 4 experts, bf16
+parameters; the smoke's phase 4 serves the same cut), from seed-0
+weights in bf16: ``serve_batch`` at batch 4, a 128-token prompt and 32
+generated tokens (one warm-up, then ``--reps`` runs: decode tokens/s
+and the teacher-forced prefill's seconds), and ``lm.prefill`` at 4 x 128
+and 1 x 4096 (one warm-up each, then ``--reps`` timed runs, synced).
+Prints one JSON line per tree and writes them all to ``--out``. Needs a
+CUDA card.
 """
 from __future__ import annotations
 
@@ -37,7 +39,6 @@ def child(tree: str, archs: list[str], reps: int) -> dict:
     import numpy as np
     import torch
 
-    from repro_torch.configs import get_config
     from repro_torch.kernels import build
     from repro_torch.launch.serve import serve_batch
     from repro_torch.models import lm
@@ -46,8 +47,11 @@ def child(tree: str, archs: list[str], reps: int) -> dict:
     build.load()
     out: dict = {"tree": tree, "package": str(Path(
         sys.modules["repro_torch"].__file__).parent)}
+    # this checkout's cuts, applied to the measured tree's configs
+    sys.path.insert(1, str(Path(__file__).resolve().parents[1]))
+    from chip_smoke import model_config
     for arch in archs:
-        cfg = get_config(arch)
+        cfg, _ = model_config(arch)
         params = lm.init(cfg, 0, device="cuda")
         res: dict = {"decode_tok_per_s": [], "serve_prefill_s": []}
         for i in range(reps + 1):
