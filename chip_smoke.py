@@ -172,7 +172,26 @@ Phases, each of which fails the run on error:
            launch a layer and a ``cellcopy`` or more on every rank. The
            counts go to 0 just before (b)'s timed prefill and (c)'s step
            and are read just after, each path on its own.
-8. report  the ``kernels`` JSON line (times at the main paths' shapes,
+8. counts  the host tools against the card: (a) the dry run's roofline
+           (``launch/dryrun.count_cell`` on the meta device) of three
+           steps phases 4 and 7 (a) time: smollm-135m's
+           ``make_train_step`` at 8 x 4096, ga 4; llama3-8b's prefill of
+           1 x 4096 and its decode step at batch 4. Each ran once more,
+           untimed, under ``analysis.hlo.count`` in its phase: FLOPs and
+           bytes agree within rel 1e-6 of the meta count, the charged
+           launches equal the launch counts; prints the three roofline
+           terms (H100 constants), the measured step time and the
+           measured share of the roofline. (b) ``perfmodel``'s
+           ``protocol_time`` of each path's 1 MiB one-way counters on
+           the paper's CXL box beside the card's time (printed in phase
+           3; gates nothing). (c) phase 3's one-way run once more at
+           1 MiB a path, 2 ranks under ``trace=True``: each rank's dump
+           merged by ``python -m repro_torch.trace`` into a timeline with
+           two process lanes with events on each, and its summary. (d)
+           ``compile_schedule(verify=True)`` for every schedule phases 3
+           and 6 compiled, and ``lint_protocol`` over
+           ``repro_torch/core``: no finding.
+9. report  the ``kernels`` JSON line (times at the main paths' shapes,
            ``cellcopy``'s beside ``Tensor.copy_`` (one at the serving
            tier's 4096 B page), its launches per path, ``flash_attention``
            at every shape phases 4 and 5 launch it at, beside SDPA,
@@ -229,12 +248,18 @@ SERVE_TIER = {"sessions": 2000, "rate": 1500.0, "verify_every": 29,
               "slots_per_worker": 128, "page_bytes": 4096,
               "deadline_s": 600.0, "seed": 0}
 
-# peak rates of one H100 SXM (NVIDIA's data sheet): HBM3, and the host
-# link, PCIe 5.0 x16 (32 GT/s x 16 lanes, 128b/130b) in one direction;
-# dense bf16 and TF32 on the tensor cores and f32 outside them
-HBM_BPS = 3.35e12
-PCIE_BPS = 32e9 * 16 * 128 / 130 / 8
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "tf32": 495e12}
+# the peak rates of one H100 SXM (HBM3, the PCIe 5.0 x16 host link, the
+# per-dtype tensor-core and FMA peaks) are repro_torch.analysis.hlo's,
+# and the kernels' work formulas their ops modules' (``work``)
+
+# phase 8 (a): the steps whose dry-run counts meet the card's, and the
+# largest relative difference allowed between the two counts
+ROOFLINE = {"arch": "llama3-8b", "decode_batch": 4}
+COUNT_RTOL = 1e-6
+# phase 8 (b): the counters of a one-way run that protocol_time reads
+PROTO_KEYS = ("written_bytes", "read_bytes", "flush_lines", "fences",
+              "nt_ops", "uncached_ops")
+TRACE_DIR = ROOT / "artifacts" / "trace_smoke"
 
 # the model path: published configs, serve_batch's shape, one long prompt
 MODELS = ("llama3-8b", "rwkv6-3b", "granite-moe-1b-a400m", "musicgen-large",
@@ -406,6 +431,7 @@ def _one_way(env, path: str, size: int, sender: int, iters: int,
     k1 = (c.eager_sends, c.rndv_sends, c.posted_sends, ops.LAUNCHES)
     out = {"s": dt / iters, "copied": delta["copied_bytes"],
            "path_bytes": delta["path_copied_bytes"],
+           "proto": {k: delta[k] for k in PROTO_KEYS},
            "eager": k1[0] - k0[0], "rndv": k1[1] - k0[1],
            "posted": k1[2] - k0[2], "launches": k1[3] - k0[3]}
     if env.rank != sender:
@@ -479,7 +505,37 @@ def main_path(env) -> dict:
                          "rndv": c.rndv_sends - r0,
                          "misses": env.arena.view.stats.mb_capacity_misses}
     res["launches"] = ops.LAUNCHES
+    res["schedules"] = compiled_schedules()
     return res
+
+
+def compiled_schedules() -> list:
+    """Every schedule this process's communicators compiled, as
+    ``(size, kind, nbytes, itemsize, root, group, chunk_bytes)``: phase 8
+    (d) verifies each."""
+    import gc
+    import warnings
+
+    from repro_torch.core.pt2pt import Communicator
+    with warnings.catch_warnings():     # isinstance on deprecated objects
+        warnings.simplefilter("ignore")
+        comms = [o for o in gc.get_objects() if isinstance(o, Communicator)]
+    return sorted({(o.size, *k) for o in comms for k in o._sched_cache},
+                  key=repr)
+
+
+def trace_path(env) -> dict:
+    """Phase 8 (c)'s rank program: phase 3's one-way run once more at
+    1 MiB a path under ``trace=True``; each rank writes its
+    flight-recorder dump."""
+    c = env.comm
+    ok = True
+    for path in PATHS:
+        c.eager_threshold = 1 << 40 if path == "eager" else 0
+        out = _one_way(env, path, MiB, 0, 1, MiB + 2)
+        ok = ok and out.get("bytes_ok", True)
+    dump = c.trace_dump(TRACE_DIR / f"rank{env.rank}.json")
+    return {"rank": env.rank, "dump": str(dump), "bytes_ok": ok}
 
 
 # ---------------------------------------------------------------------------
@@ -992,6 +1048,7 @@ def page_timing(pool) -> dict:
 def _copy_row(name, n, dst, s, pcie_bytes, hbm_bytes) -> dict:
     import torch
 
+    from repro_torch.analysis.hlo import HBM_BW, LINK_BW
     from repro_torch.kernels.cellcopy import ops, ref
     n_cells = -(-n // CELL)
     sums = torch.empty(n_cells, dtype=torch.uint32, device=dst.device)
@@ -1003,7 +1060,7 @@ def _copy_row(name, n, dst, s, pcie_bytes, hbm_bytes) -> dict:
     # each input read once, each output written once: the payload,
     # plus 4 B of sum per cell into device memory
     hbm = hbm_bytes + 4 * n_cells
-    bound = max(pcie_bytes / PCIE_BPS, hbm / HBM_BPS) * 1e3
+    bound = max(pcie_bytes / LINK_BW, hbm / HBM_BW) * 1e3
     plan = ops.launch_plan(n, CELL, dst.data_ptr() % 16,
                            s.data_ptr() % 16)
     return {"shape": name, "bytes": n, "ms": kern,
@@ -1386,42 +1443,6 @@ def wkv6_bwd_phase() -> dict:
                         if c["case"].endswith(dt)) for dt in GRAD_TOL}}
 
 
-def _flash_work(b, h, kv, s, d, dtype, causal=True):
-    """(flops, bytes) the function needs: 4 d flops per (query, key) pair
-    it attends (s(s+1)/2 pairs per head when causal); q, k, v read once
-    and o written once."""
-    pairs = s * (s + 1) // 2 if causal else s * s
-    es = 2 if dtype == "bfloat16" else 4
-    return 4 * b * h * d * pairs, es * d * s * b * (2 * h + 2 * kv)
-
-
-def _wkv6_work(b, h, s, n, dtype):
-    """(flops, bytes): per token and head 2n^2 for r.S, 4n for
-    (r.(u*k)) v, 3n^2 for S*w + k v^T; r, k, v, w read and o written
-    once, u read once."""
-    es = 2 if dtype == "bfloat16" else 4
-    return (b * h * s * (5 * n * n + 4 * n),
-            b * h * s * n * (3 * es + 4 + 4) + h * n * 4)
-
-
-def _wkv6_bwd_work(b, h, s, n, dtype):
-    """(flops, bytes) of the backward from the inputs alone: per token
-    and head 3n^2 to recompute the state, 2n^2 each for dr (S do), dk
-    (G v), dv (k^T G) and dw (G * S summed), 3n^2 for G's update, and
-    10n for the u and a_t terms; r, k, v, w and do read once, dr, dk,
-    dv and dw written once, u read and du written once."""
-    es = 2 if dtype == "bfloat16" else 4
-    return (b * h * s * (14 * n * n + 10 * n),
-            b * h * s * n * (6 * es + 4 + 4 + 4) + 2 * h * n * 4)
-
-
-def _bound_ms(flops: float, nbytes: float, dtype: str) -> tuple[float, str]:
-    ops_s = flops / PEAK_FLOPS[dtype]
-    mem_s = nbytes / HBM_BPS
-    return max(ops_s, mem_s) * 1e3, ("operations" if ops_s >= mem_s
-                                      else "bytes")
-
-
 def model_kernel_timings() -> tuple[list[dict], list[dict]]:
     """Kernel, plain version and library call at the model path's shapes
     (bf16, as the served models call them; f32 at the parity prefill's
@@ -1430,6 +1451,7 @@ def model_kernel_timings() -> tuple[list[dict], list[dict]]:
     import torch
     import torch.nn.functional as F
 
+    from repro_torch.analysis.hlo import bound_ms
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.flash_attention import ref as fa_ref
     from repro_torch.kernels.rwkv6 import ops as wk
@@ -1446,15 +1468,15 @@ def model_kernel_timings() -> tuple[list[dict], list[dict]]:
         plain, _ = _time_ms(lambda: fa_ref.attention_ref(q, k, v), reps, 2)
         lib, _ = _time_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=True, enable_gqa=True), reps, 2)
-        flops, nbytes = _flash_work(*shape, dt)
+        flops, nbytes = fa.work(*shape, dt)
         if dt == "float32":
             # the kernel's own bound: three TF32 tensor-core products per
             # flop; the FMA pipes' bound beside it
-            bound, by = _bound_ms(3 * flops, nbytes, "tf32")
+            bound, by = bound_ms(3 * flops, nbytes, "tf32")
             fma = dict(zip(("fma_bound_ms", "fma_bound_by"),
-                           _bound_ms(flops, nbytes, dt)))
+                           bound_ms(flops, nbytes, dt)))
         else:
-            (bound, by), fma = _bound_ms(flops, nbytes, dt), {}
+            (bound, by), fma = bound_ms(flops, nbytes, dt), {}
         kind = "bf16" if dt == "bfloat16" else "f32"
         h, kv, d = heads
         train = (heads, b, s, dt) in TRAIN_TIMED
@@ -1474,8 +1496,8 @@ def model_kernel_timings() -> tuple[list[dict], list[dict]]:
         kern, kern_issued = _time_ms(lambda: wk.wkv6(*args), 10, 2)
         plain, _ = _time_ms(lambda: wk_ref.wkv6_ref(*args), 2, 1,
                             spin=False)
-        flops, nbytes = _wkv6_work(*shape, "bfloat16")
-        bound, by = _bound_ms(flops, nbytes, "float32")
+        flops, nbytes = wk.work(*shape, "bfloat16")
+        bound, by = bound_ms(flops, nbytes, "float32")
         plan = _wkv6_plan(*shape, "bfloat16")
         gx, gy, gz = plan["grid"]
         wkv.append({"shape": f"B={b} H=40 S={s} n=64 bf16 r,k,v",
@@ -1544,6 +1566,7 @@ def wkv6_bwd_timing(split: dict | None) -> dict:
     backward's time (``wkv6_bwd_ref``, a Python loop over tokens: timed
     without the spin, once); its workspace, and each kernel's share of
     its device time (``split``, from ``wkv6_bwd_split``)."""
+    from repro_torch.analysis.hlo import bound_ms
     from repro_torch.kernels.rwkv6 import ops as wk
     from repro_torch.kernels.rwkv6 import ref as wk_ref
     b, h, s, n = WKV6_LAUNCH
@@ -1553,8 +1576,8 @@ def wkv6_bwd_timing(split: dict | None) -> dict:
     plain, _ = _time_ms(lambda: wk_ref.wkv6_bwd_ref(
         *(a.transpose(1, 2) for a in (r, k, v, w)), u, do.transpose(1, 2)),
         1, 0, spin=False)
-    flops, nbytes = _wkv6_bwd_work(b, h, s, n, "bfloat16")
-    bound, by = _bound_ms(flops, nbytes, "float32")
+    flops, nbytes = wk.bwd_work(b, h, s, n, "bfloat16")
+    bound, by = bound_ms(flops, nbytes, "float32")
     plan = _wkv6_bwd_plan(b, h, s, n, "bfloat16")
     gx, gy, gz = plan["grid"]
     return {"shape": f"B={b} H={h} S={s} n={n} bf16 r,k,v bshn",
@@ -1675,6 +1698,66 @@ def fill_cross_cache(params, cfg, state, ctx) -> None:
             state[p]["kv"][name].copy_(t.reshape(
                 cfg.n_groups, b, n, cfg.n_kv_heads, cfg.d_head
             ).transpose(2, 3))
+
+
+def count_on_card(fn, *args) -> dict:
+    """One untimed call of ``fn(*args)`` under ``analysis.hlo.count`` on
+    the card: its FLOPs, bytes and charged kernels, and the kernels
+    launched meanwhile."""
+    import torch
+
+    from repro_torch.analysis import hlo
+    from repro_torch.kernels.cellcopy import ops as cc
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.rwkv6 import ops as wk
+
+    def launches():
+        return {"flash_attention": fa.LAUNCHES, "wkv6": wk.LAUNCHES,
+                "wkv6_bwd": wk.BWD_LAUNCHES, "cellcopy": cc.LAUNCHES}
+    before = launches()
+    st = hlo.count(fn, *args)
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in launches().items()
+                if v - before[k]}
+    return {"flops": st.flops, "bytes": st.bytes_,
+            "kernels": {k: v["launches"] for k, v in st.kernels.items()},
+            "launched": launched}
+
+
+def roofline_shape(kind: str):
+    """Phase 8 (a)'s shape of llama3-8b's ``kind`` step: the prefill of
+    one ``LONG_PROMPT``-token row, or a decode step at batch 4 over the
+    cache ``_decode_profile`` times (steps + 1 = 4 positions)."""
+    import dataclasses
+
+    from repro_torch.configs import SHAPES
+    if kind == "prefill":
+        return dataclasses.replace(SHAPES["prefill_32k"], seq_len=LONG_PROMPT,
+                                   global_batch=1)
+    return dataclasses.replace(SHAPES["decode_32k"], seq_len=4,
+                               global_batch=ROOFLINE["decode_batch"])
+
+
+def count_serve_steps(params, cfg, long_prompt, prompts) -> dict:
+    """Phase 8 (a) on the card: ``make_serve_prefill``'s step of the long
+    prompt and ``make_serve_decode``'s step at batch 4, once each under
+    the counter."""
+    import torch
+
+    from repro_torch.models import lm
+    from repro_torch.train import steps as ST
+    pre = ST.make_serve_prefill(cfg, roofline_shape("prefill"), None)
+    out = {"prefill": count_on_card(pre.fn, params,
+                                    {"tokens": long_prompt})}
+    shape = roofline_shape("decode")
+    b = shape.global_batch
+    state = lm.decode_state_init(cfg, b, shape.seq_len, device="cuda")
+    dec = ST.make_serve_decode(cfg, shape, None)
+    out["decode"] = count_on_card(
+        dec.fn, params, state, {"tokens": prompts[:b, :1].contiguous()},
+        torch.zeros((b,), dtype=torch.int32, device="cuda"))
+    del state
+    return out
 
 
 def model_phase(arch: str) -> dict:
@@ -1809,6 +1892,11 @@ def model_phase(arch: str) -> dict:
                ("serve", "prefill", "f32_prefill_vs_decode"))
     if not peak < 80:
         fail(f"{arch}: peak card memory {peak:.1f} GB, over 80 GB")
+    if arch == ROOFLINE["arch"]:
+        # phase 8 (a): the long prefill and a decode step once more,
+        # untimed, under the dry run's counter
+        res["counted"] = count_serve_steps(params, cfg, long_prompt,
+                                           prompts)
     del params, state, full, ctx, long_ctx
     torch.cuda.empty_cache()
     return res
@@ -2389,6 +2477,7 @@ def cmpi_path(env) -> dict:
     rep["launches"] = _cmpi_counts()
     rep["attn_layers"] = prefill_launches(cfg)["flash_attention"]
     rep["seconds"] = time.perf_counter() - t_all
+    rep["schedules"] = compiled_schedules()
     return rep
 
 
@@ -2628,6 +2717,10 @@ def steps_ga_phase() -> dict:
              "microbatch)")
     if not all(map(math.isfinite, losses)) or not res["mem"]["peak_GB"] < 80:
         fail(f"steps (a): 8 x 4096: {res['mem']}")
+    # phase 8 (a): one more 8 x 4096 step, untimed, under the dry run's
+    # counter (its launches are not the path's)
+    res["counted"] = count_on_card(step.fn, params, state, batch_of(
+        cfg, shape, g["mem_steps"] + 1))
 
     shape = SHAPES["train_4k"]
     step = ST.make_train_step(cfg, shape, None)
@@ -3071,6 +3164,136 @@ def _wkv6_bwd_build(lib, props, dt, mangled: str, n: int) -> dict:
     return report
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the host tools against the card
+# ---------------------------------------------------------------------------
+
+def roofline_phase(models: dict, steps_ga: dict, card: str) -> dict:
+    """(a) Each step's dry-run count on the meta device (``count_cell``,
+    one card, no mesh) against its count on the card (``counted``, taken
+    in phases 4 and 7 (a)): FLOPs and bytes within ``COUNT_RTOL``, the
+    charged launches equal to the launches on the card and to the
+    phase's own count a step. Returns each step's counts, roofline terms
+    and measured share of the roofline."""
+    import dataclasses
+
+    from repro_torch.analysis import hlo
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch import dryrun
+    llama = models[ROOFLINE["arch"]]
+    train_shape = dataclasses.replace(SHAPES["train_4k"],
+                                      global_batch=STEPS_GA["mem_rows"])
+    cells = {
+        f"{STEPS_GA['arch']} train_step {STEPS_GA['mem_rows']}x4096 ga 4": (
+            get_config(STEPS_GA["arch"]), train_shape, 4,
+            steps_ga["counted"], min(steps_ga["mem"]["step_s"]),
+            {"flash_attention": steps_ga["mem"]["flash_launches_per_step"]}),
+        f"{ROOFLINE['arch']} prefill 1x{LONG_PROMPT}": (
+            get_config(ROOFLINE["arch"]), roofline_shape("prefill"), None,
+            llama["counted"]["prefill"], llama["prefill"][
+                f"1x{LONG_PROMPT}_s"], llama["launches_per_prefill"]),
+        f"{ROOFLINE['arch']} decode step batch "
+        f"{ROOFLINE['decode_batch']}": (
+            get_config(ROOFLINE["arch"]), roofline_shape("decode"), None,
+            llama["counted"]["decode"],
+            llama["decode_profile"]["step_ms"] / 1e3, {})}
+    out = {}
+    for name, (cfg, shape, ga, on_card, measured_s, per_step) in \
+            cells.items():
+        t0 = time.perf_counter()
+        st, _ = dryrun.count_cell(cfg, shape, None, grad_accum=ga)
+        meta_s = time.perf_counter() - t0
+        rel = {k: abs(on_card[k] - m) / m for k, m in
+               (("flops", st.flops), ("bytes", st.bytes_))}
+        charged = {k: v["launches"] for k, v in st.kernels.items()}
+        want = {k: n for k, n in per_step.items() if n}
+        if max(rel.values()) > COUNT_RTOL:
+            fail(f"counts (a) {name}: meta and card differ by {rel}")
+        if not (charged == on_card["kernels"] == on_card["launched"]
+                == want):
+            fail(f"counts (a) {name}: charged launches {charged} on meta, "
+                 f"{on_card['kernels']} on the card, launched "
+                 f"{on_card['launched']}, the phase's count a step {want}")
+        roof = hlo.Roofline(st.flops, st.bytes_, st.total_wire_bytes,
+                            hlo.model_flops(cfg, shape, 1))
+        share = roof.model_flops_per_device / hlo.PEAK_FLOPS / measured_s
+        out[name] = {"flops": st.flops, "bytes": st.bytes_,
+                     "rel_diff_card": rel, "charged_launches": charged,
+                     "roofline": roof.as_dict(), "measured_s": measured_s,
+                     "measured_share": share, "meta_count_s": meta_s,
+                     "card": card}
+        say(f"[counts] {name}: {st.flops:.6g} FLOPs, {st.bytes_:.6g} B "
+            f"(card within {max(rel.values()):.2g}); compute "
+            f"{roof.compute_s * 1e3:.4g} ms, memory "
+            f"{roof.memory_s * 1e3:.4g} ms, collective "
+            f"{roof.collective_s * 1e3:.4g} ms (H100: {hlo.PEAK_FLOPS:.4g} "
+            f"FLOP/s, {hlo.HBM_BW:.4g} B/s, {hlo.LINK_BW:.4g} B/s); "
+            f"measured {measured_s * 1e3:.4g} ms, share of the roofline "
+            f"{share:.4g} ({card}); charged launches {charged}")
+    return out
+
+
+def trace_phase() -> dict:
+    """(c) Phase 3's one-way run once more at 1 MiB a path, 2 ranks under
+    ``trace=True``; ``python -m repro_torch.trace merge`` of their dumps
+    in a subprocess must give two process lanes with events on each."""
+    from repro_torch.core import run_processes
+    TRACE_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    ranks = run_processes(2, trace_path, pool_bytes=POOL_BYTES,
+                          cell_size=CELL, device="cuda",
+                          comm_kw={"matchbox_slots": 8, "trace": True},
+                          timeout=300)
+    if not all(r["bytes_ok"] for r in ranks):
+        fail("counts (c): a traced 1 MiB message arrived different")
+    dumps = [r["dump"] for r in sorted(ranks, key=lambda r: r["rank"])]
+    timeline = TRACE_DIR / "timeline.json"
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+
+    def cli(*args) -> str:
+        r = subprocess.run([sys.executable, "-m", "repro_torch.trace",
+                            *args], capture_output=True, text=True,
+                           timeout=300, env=env)
+        if r.returncode != 0:
+            fail(f"counts (c): python -m repro_torch.trace {args[0]} "
+                 f"exited {r.returncode}: {r.stderr[-2000:]}")
+        return r.stdout
+    say(f"[counts] {cli('merge', *dumps, '-o', str(timeline)).strip()}")
+    evs = json.loads(timeline.read_text())["traceEvents"]
+    lanes = {pid: sum(1 for e in evs if e["pid"] == pid and e["ph"] != "M")
+             for pid in {e["pid"] for e in evs}}
+    if sorted(lanes) != [0, 1] or not all(lanes.values()):
+        fail(f"counts (c): the timeline's process lanes and events {lanes}")
+    summary = cli("summarize", *dumps, "--top", "10")
+    say("[counts] trace summary, top 10:\n" + summary.rstrip())
+    return {"lanes": lanes, "events": len(evs),
+            "seconds": time.perf_counter() - t0}
+
+
+def static_phase(schedules: set) -> dict:
+    """(d) ``compile_schedule(verify=True)`` for every schedule phases 3
+    and 6 compiled, and the protocol linter over ``repro_torch/core``."""
+    from repro_torch.analysis import lint_protocol, verify
+    from repro_torch.core.sched import compile_schedule
+    t0 = time.perf_counter()
+    for size, kind, nbytes, itemsize, root, group, chunk in sorted(
+            schedules, key=repr):
+        try:
+            compile_schedule(verify._CompileView(size, 0), kind, nbytes,
+                             itemsize, root, group=group, chunk_bytes=chunk,
+                             verify=True)
+        except Exception as e:      # a finding, or a compiler that fails
+            fail(f"counts (d): {kind} at {size} ranks, {nbytes} B: {e}")
+    findings = lint_protocol.lint_paths([lint_protocol._default_target()])
+    if findings:
+        fail("counts (d): lint_protocol: " + "; ".join(map(str, findings)))
+    out = {"schedules_verified": len(schedules),
+           "kinds": sorted({s[1] for s in schedules}),
+           "lint_findings": 0, "seconds": time.perf_counter() - t0}
+    say(f"[counts] {json.dumps(out)}")
+    return out
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -3078,6 +3301,17 @@ def nvidia_smi() -> str:
     if out.returncode != 0 or not out.stdout.strip():
         fail(f"nvidia-smi failed: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
+
+
+def modeled_cxl_us(fwd: list[dict], iters: int) -> float:
+    """``perfmodel.protocol_time`` on the paper's CXL box of both ranks'
+    protocol counters of a one-way run, per message, in us."""
+    from types import SimpleNamespace
+
+    from repro_torch.perfmodel.interconnects import CXL_SHM, protocol_time
+    stats = SimpleNamespace(**{k: sum(f["proto"][k] for f in fwd) / iters
+                               for k in PROTO_KEYS})
+    return protocol_time(stats, CXL_SHM) * 1e6
 
 
 def check_main(ranks: list[dict], main_s: float) -> tuple:
@@ -3119,6 +3353,13 @@ def check_main(ranks: list[dict], main_s: float) -> tuple:
                          f"{tol} of {ref_b}")
                 per_msg_launches[path] = (
                     fwd[0]["launches"] + fwd[1]["launches"]) / iters
+                lat[path][size]["modeled_cxl_us"] = modeled_cxl_us(
+                    fwd, iters)
+                say(f"[perfmodel] {path} @1MiB: protocol_time on the "
+                    f"paper's CXL box (CXL_SHM, clflushopt, modeled) "
+                    f"{lat[path][size]['modeled_cxl_us']:.1f} us/msg, "
+                    f"measured on the card's mapped pool "
+                    f"{snd['s'] * 1e6:.1f} us/msg")
     say(f"[main] all {len(PATHS) * len(SIZES)} path x size cases "
         f"byte-exact both ways")
     reg = [r["p2p"]["registered"] for r in ranks]
@@ -3271,6 +3512,7 @@ def main() -> None:
         if ops.LAUNCHES:
             fail("the parent launched kernels during the main path")
         launches, lat, per_msg_launches = check_main(ranks, main_s)
+        schedules = {tuple(s) for r in ranks for s in r["schedules"]}
         rows = timings(pool)
         rows.append(page_timing(pool))
 
@@ -3323,6 +3565,7 @@ def main() -> None:
     if ops.LAUNCHES:
         fail("the parent launched kernels during the cmpi phase")
     cmpi = check_cmpi(cranks, cmpi_s)
+    schedules |= {tuple(s) for r in cranks for s in r["schedules"]}
     del cranks
     say(f"[cmpi] {json.dumps(cmpi)}")
 
@@ -3348,7 +3591,20 @@ def main() -> None:
     del eranks
     say(f"[ep] {json.dumps(ep)}")
 
-    # 8. report
+    # 8. the host tools against the card: (a) the dry run's counts, (c)
+    # the trace CLI, (d) the verifier and the linter ((b) printed in 3)
+    t0 = time.perf_counter()
+    card = nvidia_smi()
+    roofline = roofline_phase(models, steps_ga, card)
+    traced = trace_phase()
+    static = static_phase(schedules)
+    say(f"[counts] phase {time.perf_counter() - t0:.1f} s")
+    dry_launches: dict = {}
+    for cell, r in roofline.items():
+        for k, n in r["charged_launches"].items():
+            dry_launches.setdefault(k, {})[cell] = n
+
+    # 9. report
     for r in rows:
         say(f"[time] {json.dumps(r)}")
     flash_rows, wkv_rows = model_kernel_timings()
@@ -3375,6 +3631,7 @@ def main() -> None:
         "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
         "bound_by": "bytes", "library_ms": head["library_ms"],
         "launches_per_1MiB_message": per_msg_launches,
+        "dryrun_charged_launches": dry_launches.get("cellcopy", {}),
         "build": kernel_build["cellcopy_kernel"], "shapes": rows}]
     for name, src, replaces, c, rows_ in (
             ("flash_attention", "flash_attention.cu",
@@ -3411,6 +3668,7 @@ def main() -> None:
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"], "shapes": rows_,
+            "dryrun_charged_launches": dry_launches.get(name, {}),
             "build": flash_build if name == "flash_attention" else {
                 k: v for k, v in kernel_build.items() if "wkv6_fwd" in k}})
     entries.append({
@@ -3426,6 +3684,7 @@ def main() -> None:
         "plain_ms": bwd_row["plain_ms"], "bound_ms": bwd_row["bound_ms"],
         "bound_by": bwd_row["bound_by"], "library_ms": None,
         "shapes": [bwd_row],
+        "dryrun_charged_launches": dry_launches.get("wkv6_bwd", {}),
         "build": {k: v for k, v in kernel_build.items() if "bwd" in k}})
     say(json.dumps({"one_way_latency_bandwidth": lat}))
     say(json.dumps({"one_sided_latency_bandwidth": one_sided}))
@@ -3438,6 +3697,8 @@ def main() -> None:
         "grad", "model_grad", *TRAIN, "restart")}}))
     say(json.dumps({"cmpi_training": cmpi}))
     say(json.dumps({"steps": {"grad_accum": steps_ga, "ep": ep}}))
+    say(json.dumps({"counts": {"roofline": roofline, "trace": traced,
+                               "static": static}}))
     say(f"[done] {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": entries}))
     say(nvidia_smi())

@@ -29,8 +29,12 @@ mapped into the GPU, and device bytes enter and leave it through the
   trace       — flight recorder + metrics registry
   profile     — the measured machine profile behind ``tuning="auto"``
 
-The deprecated pre-v2 names are not part of this package yet.
+The pre-v2 names (``Communicator``, the free-function collectives) are
+served lazily, each access with a ``DeprecationWarning``.
 """
+import warnings as _warnings
+from importlib import import_module as _import_module
+
 from repro_torch.core.arena import (PAPER_ARENA, Arena, ArenaFullError,
                                     ObjHandle)
 from repro_torch.core.coherence import CoherentView, ProtocolStats
@@ -54,3 +58,40 @@ from repro_torch.core.sync import PSCW, BakeryLock, RWLock, SeqBarrier
 from repro_torch.core.trace import (EV_NAMES, Histogram, Metrics, Tracer,
                                     as_tracer, chrome_events, merge_dumps,
                                     summarize_dumps)
+
+# pre-v2 API surface: served lazily so each access emits a
+# DeprecationWarning while old code keeps working unchanged
+_DEPRECATED = {
+    "Communicator": ("repro_torch.core.pt2pt", "Communicator",
+                     "repro_torch.core.Comm"),
+    "bcast": ("repro_torch.core.collectives", "bcast", "Comm.bcast"),
+    "reduce": ("repro_torch.core.collectives", "reduce", "Comm.reduce"),
+    "allreduce": ("repro_torch.core.collectives", "allreduce",
+                  "Comm.allreduce"),
+    "allgather_ring": ("repro_torch.core.collectives", "allgather_ring",
+                       "Comm.allgather"),
+    "allgather_bruck": ("repro_torch.core.collectives", "allgather_bruck",
+                        "Comm.allgather(algo='bruck')"),
+    "reduce_scatter_ring": ("repro_torch.core.collectives",
+                            "reduce_scatter_ring", "Comm.reduce_scatter"),
+    "alltoall": ("repro_torch.core.collectives", "alltoall",
+                 "Comm.alltoall"),
+    "barrier_dissemination": ("repro_torch.core.collectives",
+                              "barrier_dissemination", "Comm.barrier"),
+}
+
+
+def __getattr__(name: str):
+    entry = _DEPRECATED.get(name)
+    if entry is None:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    module, attr, replacement = entry
+    _warnings.warn(
+        f"repro_torch.core.{name} is deprecated; use {replacement} instead "
+        f"(the Comm API v2 facade)",
+        DeprecationWarning, stacklevel=2)
+    return getattr(_import_module(module), attr)
+
+
+def __dir__():
+    return sorted(list(globals()) + list(_DEPRECATED))

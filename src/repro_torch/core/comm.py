@@ -997,7 +997,7 @@ class Comm(Communicator):
 
     def trace_dump(self, path) -> str:
         """Write this rank's flight-recorder ring + report as a JSON
-        dump for ``python -m repro.trace merge|summarize``. Returns the
+        dump for ``python -m repro_torch.trace merge|summarize``. Returns the
         written path. Each rank dumps its own file; the CLI stitches
         them into one Chrome/Perfetto timeline (CLOCK_MONOTONIC is
         shared across processes on one host, so no clock alignment is
@@ -1315,8 +1315,12 @@ class Comm(Communicator):
             dst = (r + off) % n
             src = as_u8(blocks[dst])
             pb = self._rounds.buf(1 + off, len(src))
-            lane = (self.arena.pool.device_view(pb.offset, len(src))
-                    if is_device(src) else pb.view()[:len(src)])
+            # the device side of pb.view(): this rank's own round buffer,
+            # filled (kernel, then a stream sync) before the isend below
+            # publishes it
+            lane = (self.arena.pool.device_view(  # lint: raw-ok (own buffer)
+                pb.offset, len(src)) if is_device(src)
+                else pb.view()[:len(src)])
             copy_bytes_into(lane, src)
             reqs.append(self.isend(dst, pb.slice(0, len(src)),
                                    tag=_T + 1024 + off, _internal=True))

@@ -281,7 +281,11 @@ class _ResidentBufs:
     def _window(self, slot: int, off: int, n: int, dev: bool):
         pb = self._bufs[slot]
         if dev:
-            return pb._comm.arena.pool.device_view(pb.offset + off, n)
+            # the device side of pb.view(): a slot of the rank's own
+            # round buffers, filled before a send node publishes it and
+            # read after a recv node's acquire
+            return pb._comm.arena.pool.device_view(  # lint: raw-ok (own slot)
+                pb.offset + off, n)
         return pb.view()[off:off + n]
 
     def fill(self, slot: int, data: torch.Tensor, pad_to: int = 0) -> None:

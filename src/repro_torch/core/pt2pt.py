@@ -307,9 +307,10 @@ class PoolBuffer:
     def tensor(self) -> torch.Tensor:
         """uint8 tensor aliasing the payload on the communicator's device:
         the pool's device window on a CUDA communicator, the host window
-        otherwise. Zero-copy either way."""
-        return self._comm.arena.pool.tensor_view(self.offset, self.nbytes,
-                                                 self._comm.device)
+        otherwise. Zero-copy either way: the device side of ``view()``,
+        the caller's own buffer until a send publishes it."""
+        return self._comm.arena.pool.tensor_view(  # lint: raw-ok (own buffer)
+            self.offset, self.nbytes, self._comm.device)
 
     def write(self, data, off: int = 0) -> None:
         """Protocol-correct fill (valid on every pool mode)."""
@@ -1489,8 +1490,11 @@ class Communicator:
                         sink = memoryview(bytearray(total))
                     k = min(len(payload) - 16, total)
                     # a device sink takes the chunk from the pinned
-                    # landing buffer through the kernel
-                    copy_bytes_into(sink[:k], scratch.device_view(16, k)
+                    # landing buffer through the kernel: a rank-private
+                    # LocalPool that try_dequeue filled through the
+                    # protocol above
+                    copy_bytes_into(sink[:k], scratch.device_view(
+                        16, k)  # lint: raw-ok (private landing buffer)
                                     if is_device(sink) else
                                     payload[16:16 + k])
                     v.count_copy(k)

@@ -412,8 +412,10 @@ class Window:
         ``put_notify`` left it: zero receiver-side copies, and none
         counted). Raises ``TypeError`` when the backing pool cannot hand
         out raw views (incoherent test pools) — fall back to
-        ``get_into`` there."""
-        return self.arena.pool.tensor_view(
+        ``get_into`` there. Its bytes are the rank's own segment, which
+        the origin's put published before the notification or epoch the
+        caller synchronised on."""
+        return self.arena.pool.tensor_view(  # lint: raw-ok (own segment)
             self._addr(self.rank, disp, nbytes), nbytes, self.device)
 
     # ------------------------------------------------------------------

@@ -10,9 +10,8 @@ a collective is compiled into a small dependency DAG of four node kinds
   ReduceOp  dst[...] = op(dst, src) over two regions (local compute)
   CopyOp    dst[...] = src (local data movement)
 
-plus two ONE-SIDED node kinds for schedules bound to an RMA window (the
-IR is shared with the JAX package; this package's one-sided windows are
-still to be ported):
+plus two ONE-SIDED node kinds for schedules bound to an RMA window
+(``repro_torch.core.rma.Window``):
 
   PutOp     store a local buffer region into rank ``target``'s window
             segment at byte displacement ``disp`` (write_release — no
@@ -873,7 +872,8 @@ _COMPILERS = {
 
 def compile_schedule(comm, kind: str, nbytes: int = 0, itemsize: int = 1,
                      root: int = 0, *, group: int = 0,
-                     chunk_bytes: int | None = None) -> Schedule:
+                     chunk_bytes: int | None = None,
+                     verify: bool = False) -> Schedule:
     """Compile (or fetch from the communicator's cache) the schedule for
     ``kind`` at this (size, rank, payload) — the once-per-(op, size,
     topology) contract. ``nbytes`` is the slot-0 payload for whole-
@@ -882,7 +882,19 @@ def compile_schedule(comm, kind: str, nbytes: int = 0, itemsize: int = 1,
     the schedule at chunk granularity (see ``chunk_schedule``); it is
     widened — never narrowed — until the sub-round count fits the
     per-launch tag window, and the widened value is what the returned
-    schedule's ``chunk_bytes`` reports."""
+    schedule's ``chunk_bytes`` reports.
+
+    ``verify=True`` (debug hook) additionally runs the cross-rank
+    static verifier over this config — compiling ALL ranks' schedules
+    and checking send/recv matching, deadlock freedom, buffer hazards
+    and resource bounds — and raises ``ScheduleInvariantError`` on any
+    finding. Costs O(size) compilations; meant for tests and bring-up
+    of new compilers, not hot paths."""
+    if verify:
+        from repro_torch.analysis import verify as _verify
+        _verify.verify_config(kind, comm.size, nbytes=nbytes,
+                              itemsize=itemsize, root=root, group=group,
+                              chunk_bytes=chunk_bytes).raise_if_failed()
     if chunk_bytes is not None:
         # itemsize-align so no ReduceOp sub-region splits an element
         chunk_bytes = max(itemsize, chunk_bytes - chunk_bytes % itemsize)

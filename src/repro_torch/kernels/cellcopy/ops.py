@@ -15,7 +15,10 @@ Two surfaces:
   pool), any alignment, any length.
 
 ``LAUNCHES`` counts kernel launches, so a run can show that its path went
-through the kernel.
+through the kernel. Every launch, and every call of the plain version,
+charges ``work`` to an active counter (``kernels.charged``); under the
+dry run's counter, meta tensors take the ``"meta"`` route, which launches
+nothing and returns empty outputs.
 """
 from __future__ import annotations
 
@@ -23,7 +26,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import route
+from repro_torch.kernels import COUNTERS, charge, charged, route
 from repro_torch.kernels.cellcopy import ref
 
 LANE = 128
@@ -33,6 +36,13 @@ SLICE_BYTES = THREADS * VECTOR   # a cell's bytes per CTA of its cluster
 MAX_CLUSTER = 8                  # the portable thread-block cluster size
 DEFAULT_CELL_BYTES = 16384       # data-plane checksum cell (16 KiB)
 LAUNCHES = 0
+
+
+def work(nbytes: int, cell_bytes: int) -> tuple[int, int]:
+    """(flops, bytes) of one copy: no flops counted (the sums' adds are
+    not tensor-core or FMA work worth a bound); ``nbytes`` read and
+    written, and one u32 sum a cell written."""
+    return 0, 2 * nbytes + 4 * -(-nbytes // cell_bytes)
 
 
 def smem_bytes(block_cells: int, words: int) -> int:
@@ -144,6 +154,8 @@ def copy_bytes(dst_ptr: int, src_ptr: int, nbytes: int, cell_bytes: int,
               and sums_out.numel() >= n_cells):
         raise ValueError("copy_bytes: sums_out must be a contiguous "
                          f"CUDA u32 tensor of >= {n_cells} elements")
+    if COUNTERS:                     # the launch runs no torch op to pause
+        charge("cellcopy", *work(nbytes, cell_bytes))
     rc = _lib().cellcopy_bytes(
         ctypes.c_void_p(dst_ptr), ctypes.c_void_p(src_ptr), nbytes,
         cell_bytes, block_cells, ctypes.c_void_p(sums_out.data_ptr()),
@@ -168,10 +180,15 @@ def copy_into(dst: torch.Tensor, src: torch.Tensor,
     _flat_u8(src, "src")
     if dst.numel() != src.numel():
         raise ValueError(f"copy_into: {dst.numel()}B <- {src.numel()}B")
-    if route("cellcopy", dst, src) == "cpu":
-        return ref.copy_bytes_ref(dst, src, cell_bytes)
+    where = route("cellcopy", dst, src)
+    if where == "cpu":
+        with charged("cellcopy", *work(src.numel(), cell_bytes)):
+            return ref.copy_bytes_ref(dst, src, cell_bytes)
     n_cells = -(-src.numel() // cell_bytes)
     sums = torch.empty(n_cells, dtype=torch.uint32, device=dst.device)
+    if where == "meta":
+        with charged("cellcopy", *work(src.numel(), cell_bytes)):
+            return sums
     copy_bytes(dst.data_ptr(), src.data_ptr(), src.numel(), cell_bytes,
                sums)
     return sums
@@ -190,10 +207,15 @@ def cellcopy(src: torch.Tensor, block_cells: int = 8):
                          f"block_cells {block_cells}")
     if words % LANE:
         raise ValueError(f"cell words {words} not {LANE}-aligned")
-    if route("cellcopy", src) == "cpu":
-        return ref.cellcopy_ref(src)
+    where = route("cellcopy", src)
+    if where == "cpu":
+        with charged("cellcopy", *work(n_cells * words * 4, words * 4)):
+            return ref.cellcopy_ref(src)
     dst = torch.empty_like(src)
     sums = torch.empty(n_cells, dtype=torch.uint32, device=src.device)
+    if where == "meta":
+        with charged("cellcopy", *work(n_cells * words * 4, words * 4)):
+            return dst, sums
     copy_bytes(dst.data_ptr(), src.data_ptr(), n_cells * words * 4,
                words * 4, sums, block_cells=block_cells)
     return dst, sums
@@ -219,10 +241,15 @@ def copy_message(buf, cell_bytes: int = 16384, block_cells: int = 8):
     buf = _flat_u8(torch.as_tensor(buf, dtype=torch.uint8), "buf")
     n = buf.numel()
     cell_bytes, n_cells = _cell_layout(n, cell_bytes, block_cells)
-    if route("cellcopy", buf) == "cpu":
-        return buf.clone(), ref.cell_sums_ref(buf, cell_bytes, n_cells)
+    where = route("cellcopy", buf)
+    if where == "cpu":
+        with charged("cellcopy", *work(n, cell_bytes)):
+            return buf.clone(), ref.cell_sums_ref(buf, cell_bytes, n_cells)
     out = torch.empty_like(buf)
     sums = torch.zeros(n_cells, dtype=torch.int32, device=buf.device)
+    if where == "meta":
+        with charged("cellcopy", *work(n, cell_bytes)):
+            return out, sums.view(torch.uint32)
     copy_bytes(out.data_ptr(), buf.data_ptr(), n, cell_bytes, sums,
                block_cells=block_cells)
     return out, sums.view(torch.uint32)

@@ -8,7 +8,10 @@ the tensor cores: bfloat16 as bf16 wgmma fed by TMA, float32 as three
 TF32 wgmma products of operands split into hi and lo parts, which keeps
 f32 accuracy (``launch_plan`` gives each kernel's launch and tiles).
 ``LAUNCHES`` counts kernel launches, so a run can show that its path
-went through the kernel.
+went through the kernel. Every call charges ``work`` (the causal
+triangle it computes) to an active counter (``kernels.charged``); under
+the dry run's counter, meta tensors take the ``"meta"`` route, which
+launches nothing and returns an empty output.
 
 Autograd: on the CPU it runs through the plain version, as the JAX
 package differentiates its oracle. On the card every call goes through
@@ -24,7 +27,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import route
+from repro_torch.kernels import charged, itemsize, route
 from repro_torch.kernels.flash_attention import bwd, ref
 
 HEAD_DIMS = (32, 64, 128)        # template instances of the kernel
@@ -39,6 +42,24 @@ TILES = {torch.float32: {"block_q": 64, "block_k": 32, "load": 1,
          torch.bfloat16: {"block_q": 128, "block_k": 128, "load": 1,
                           "math": 2}}
 LAUNCHES = 0
+
+
+def work(b: int, h: int, kv: int, s: int, d: int, dtype,
+         causal: bool = True) -> tuple[int, int]:
+    """(flops, bytes) the function needs: 4 d flops per (query, key) pair
+    it attends (s(s+1)/2 pairs per head when causal); q, k, v read once
+    and o written once. ``dtype``: a torch dtype or its name."""
+    pairs = s * (s + 1) // 2 if causal else s * s
+    return (4 * b * h * d * pairs,
+            itemsize(dtype) * d * s * b * (2 * h + 2 * kv))
+
+
+def _charge(q, k, causal: bool, heads: int):
+    """``charged`` with this call's work: q (.., H, .., D) and k
+    (.., KV, .., D) in the layout whose head axis is ``heads``."""
+    b, s, d = q.shape[0], q.shape[3 - heads], q.shape[3]
+    return charged("flash_attention", *work(
+        b, q.shape[heads], k.shape[heads], s, d, q.dtype, causal))
 
 
 def smem_bytes(d: int, dtype: torch.dtype) -> int:
@@ -123,6 +144,8 @@ def _launch(q, k, v, causal: bool, heads: int) -> torch.Tensor:
     has q's shape and layout. A tensor the kernel cannot address as it
     lies is first copied into a fresh contiguous one."""
     global LAUNCHES
+    if q.is_meta:                    # the dry run: nothing to launch
+        return torch.empty_like(q)
     from repro_torch.kernels.build import load
     lib = load()
     q, k, v = (t if _tma_ready(t, heads) else
@@ -178,9 +201,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q: (B, H, S, D); k, v: (B, KV, S, D) with H % KV == 0. Returns
     (B, H, S, D) in q.dtype. Query head h reads kv head h // (H // KV)."""
     _check(q, k, v, heads=1)
-    if route("flash_attention", q, k, v) == "cpu":
-        return ref.attention_ref(q, k, v, causal=causal)
-    return FlashAttention.apply(q, k, v, causal, 1)
+    where = route("flash_attention", q, k, v)
+    with _charge(q, k, causal, 1):
+        if where == "cpu":
+            return ref.attention_ref(q, k, v, causal=causal)
+        return FlashAttention.apply(q, k, v, causal, 1)
 
 
 def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -189,8 +214,10 @@ def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     The kernel reads and writes this layout through strides, so nothing
     is transposed on the card."""
     _check(q, k, v, heads=2)
-    if route("flash_attention", q, k, v) == "cpu":
-        out = ref.attention_ref(q.transpose(1, 2), k.transpose(1, 2),
-                                v.transpose(1, 2), causal=causal)
-        return out.transpose(1, 2)
-    return FlashAttention.apply(q, k, v, causal, 2)
+    where = route("flash_attention", q, k, v)
+    with _charge(q, k, causal, 2):
+        if where == "cpu":
+            out = ref.attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                                    v.transpose(1, 2), causal=causal)
+            return out.transpose(1, 2)
+        return FlashAttention.apply(q, k, v, causal, 2)

@@ -11,6 +11,12 @@ every call goes through the ``WKV6`` autograd Function: its forward is
 the forward kernel, its backward the ``wkv6_bwd`` kernel (the explicit
 reverse recurrence of ``ref.wkv6_bwd_ref``). Without grad the Function
 runs its forward once and records no graph.
+
+Every forward charges ``work`` and every ``wkv6_bwd`` ``bwd_work`` to an
+active counter (``kernels.charged``; on the CPU the gradient is the plain
+version's autograd, whose ops count as they run). Under the dry run's
+counter, meta tensors take the ``"meta"`` route, which launches nothing
+and returns empty outputs.
 """
 from __future__ import annotations
 
@@ -18,7 +24,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import route
+from repro_torch.kernels import charged, itemsize, route
 from repro_torch.kernels.rwkv6 import ref
 
 HEAD_SIZES = (8, 16, 32, 64)     # template instances of the kernel
@@ -33,6 +39,31 @@ CARRY_THREADS = 128              # wkv6_bwd's carry kernel
 SM_SMEM = 233472                 # bytes of shared memory an H100 SM holds
 LAUNCHES = 0
 BWD_LAUNCHES = 0
+
+
+def work(b: int, h: int, s: int, n: int, dtype) -> tuple[int, int]:
+    """(flops, bytes): per token and head 2n^2 for r.S, 4n for
+    (r.(u*k)) v, 3n^2 for S*w + k v^T; r, k, v (``dtype``), w (f32) read
+    and o (f32) written once, u read once."""
+    es = itemsize(dtype)
+    return (b * h * s * (5 * n * n + 4 * n),
+            b * h * s * n * (3 * es + 4 + 4) + h * n * 4)
+
+
+def bwd_work(b: int, h: int, s: int, n: int, dtype) -> tuple[int, int]:
+    """(flops, bytes) of the backward from the inputs alone: per token
+    and head 3n^2 to recompute the state, 2n^2 each for dr (S do), dk
+    (G v), dv (k^T G) and dw (G * S summed), 3n^2 for G's update, and
+    10n for the u and a_t terms; r, k, v, w and do (f32) read once, dr,
+    dk, dv and dw written once, u read and du written once."""
+    es = itemsize(dtype)
+    return (b * h * s * (14 * n * n + 10 * n),
+            b * h * s * n * (6 * es + 4 + 4 + 4) + 2 * h * n * 4)
+
+
+def _dims(r, heads: int) -> tuple[int, int, int, int]:
+    """(b, h, s, n) of r in the layout whose head axis is ``heads``."""
+    return r.shape[0], r.shape[heads], r.shape[3 - heads], r.shape[3]
 
 
 def launch_plan(b: int, h: int, s: int, n: int, dtype: torch.dtype) -> dict:
@@ -81,6 +112,8 @@ def _launch(r, k, v, w, u, heads: int) -> torch.Tensor:
     """Run the kernel in the layout whose head axis is ``heads`` (1:
     BHSN, 2: BSHN); the f32 output has r's shape and layout."""
     global LAUNCHES
+    if r.is_meta:                    # the dry run: nothing to launch
+        return torch.empty(r.shape, dtype=torch.float32, device="meta")
     from repro_torch.kernels.build import load
     # contiguous, and 16-byte aligned for the kernel's cp.async copies
     r, k, v, w, u = (_aligned(a.contiguous()) for a in (r, k, v, w, u))
@@ -155,6 +188,9 @@ def _launch_bwd(r, k, v, w, u, do, heads: int) -> tuple:
     chunks' walks from zero, the carry over the chunks, the chunks'
     reverse walks, du) on a workspace it allocates with ``torch.empty``."""
     global BWD_LAUNCHES
+    if r.is_meta:                    # the dry run: nothing to launch
+        return (*(torch.empty_like(a) for a in (r, k, v, w)),
+                torch.empty_like(u))
     from repro_torch.kernels.build import load
     r, k, v, w, u, do = (_aligned(a.contiguous())
                          for a in (r, k, v, w, u, do.float()))
@@ -193,7 +229,9 @@ class WKV6(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, do):
-        grads = _launch_bwd(*ctx.saved_tensors, do, ctx.heads)
+        r = ctx.saved_tensors[0]
+        with charged("wkv6_bwd", *bwd_work(*_dims(r, ctx.heads), r.dtype)):
+            grads = _launch_bwd(*ctx.saved_tensors, do, ctx.heads)
         return (*grads, None)
 
 
@@ -201,9 +239,11 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
          u: torch.Tensor) -> torch.Tensor:
     """r,k,v,w: (B, H, S, n); u: (H, n). Returns (B, H, S, n) f32."""
     _check(r, k, v, w, u, heads=1)
-    if route("wkv6", r, k, v, w, u) == "cpu":
-        return ref.wkv6_ref(r, k, v, w, u)
-    return WKV6.apply(r, k, v, w, u, 1)
+    where = route("wkv6", r, k, v, w, u)
+    with charged("wkv6", *work(*_dims(r, 1), r.dtype)):
+        if where == "cpu":
+            return ref.wkv6_ref(r, k, v, w, u)
+        return WKV6.apply(r, k, v, w, u, 1)
 
 
 def wkv6_bshn(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -212,7 +252,9 @@ def wkv6_bshn(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     models/blocks._wkv6_scan layout). The kernels read and write this
     layout through strides, so nothing is transposed on the card."""
     _check(r, k, v, w, u, heads=2)
-    if route("wkv6", r, k, v, w, u) == "cpu":
-        args = (a.transpose(1, 2) for a in (r, k, v, w))
-        return ref.wkv6_ref(*args, u).transpose(1, 2)
-    return WKV6.apply(r, k, v, w, u, 2)
+    where = route("wkv6", r, k, v, w, u)
+    with charged("wkv6", *work(*_dims(r, 2), r.dtype)):
+        if where == "cpu":
+            args = (a.transpose(1, 2) for a in (r, k, v, w))
+            return ref.wkv6_ref(*args, u).transpose(1, 2)
+        return WKV6.apply(r, k, v, w, u, 2)

@@ -8,7 +8,9 @@ parameter dicts laid out as the JAX package's trees. On a CUDA tensor the
 full-sequence causal self-attention and the WKV6 prefill run the port's
 hand-written kernels; on the CPU they keep the JAX package's jnp
 structure (``_plain_attention`` / ``_chunked_attention``, ``_wkv6_scan``),
-so the CPU tests compare like with like. Any other device raises.
+so the CPU tests compare like with like. Meta tensors under the dry
+run's counter (``analysis.hlo.count``) take the kernels' route, which
+launches nothing; any other device raises.
 Cross-attention (queries and keys of different lengths), the MoE
 dispatch and the Mamba scan are plain torch ops on both devices, as the
 JAX package computes them outside any Pallas kernel.
@@ -197,7 +199,7 @@ def check_kv_room(pos, cache_len: int) -> None:
     builds ``pos`` on the card bounds it on the host (``serve_batch``
     sizes its cache to ``prompt_len + gen``); a CUDA ``pos`` past the
     cache fails the indexed write with a device-side assert instead."""
-    if pos.is_cuda:
+    if pos.device.type != "cpu":     # the card, or the dry run's meta
         return
     if pos.numel() and int(pos.max()) >= cache_len:
         raise ValueError(
@@ -275,8 +277,9 @@ def attn_apply(params: Params, cfg: ModelConfig, x, positions, *,
     elif is_cross:
         out = _plain_attention(q, _repeat_kv(k, H // KV),
                                _repeat_kv(v, H // KV), causal=False)
-    elif route("attention", q, k, v) == "cuda":
-        # the kernel maps query head h to kv head h // (H // KV) itself
+    elif route("attention", q, k, v) != "cpu":
+        # the card (or the dry run's meta route): the kernel maps query
+        # head h to kv head h // (H // KV) itself
         out = flash_attention_bshd(q, k, v, causal=True)
     else:
         k = _repeat_kv(k, H // KV)
@@ -757,7 +760,7 @@ def rwkv6_apply(params: Params, cfg: ModelConfig, x, *, state=None):
     u = params["u"].float()
 
     if state is None:
-        if route("wkv6", r, k, v, w, u) == "cuda":
+        if route("wkv6", r, k, v, w, u) != "cpu":   # card, or meta
             o = wkv6_bshn(r, k, v, w, u)
         else:
             o = _wkv6_scan(r, k, v, w, u)

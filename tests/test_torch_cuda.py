@@ -116,3 +116,41 @@ def test_arena_checkpoint_moves_cuda_leaves_with_cellcopy(card):
     assert step == 5 and cc.LAUNCHES == launches + 6
     assert torch.equal(got["w"], tree["w"]) and torch.equal(
         got["b"][0], tree["b"][0]) and torch.equal(got["n"], tree["n"])
+
+
+def test_meta_and_card_counts_equal(card):
+    """``analysis.hlo.count`` of a small flash and wkv6 call, forward and
+    backward, on the card and on the meta device: the same FLOPs, bytes
+    and charged kernels, and the card's launches equal the charged
+    ones."""
+    from repro_torch.analysis import hlo
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.rwkv6 import ops as wk
+
+    def step(dev):
+        g = torch.Generator().manual_seed(0)
+
+        def leaf(*shape, dtype=torch.bfloat16):
+            return torch.randn(shape, generator=g).to(dev, dtype) \
+                .requires_grad_(True)
+        q, k, v = leaf(2, 4, 128, 64), leaf(2, 2, 128, 64), \
+            leaf(2, 2, 128, 64)
+        r, kk, vv = (leaf(1, 2, 64, 64) for _ in range(3))
+        w = leaf(1, 2, 64, 64, dtype=torch.float32)
+        u = leaf(2, 64, dtype=torch.float32)
+
+        def run():
+            (fa.flash_attention(q, k, v).float().sum()
+             + wk.wkv6(r, kk, vv, w, u).sum()).backward()
+        return run
+
+    before = (fa.LAUNCHES, wk.LAUNCHES, wk.BWD_LAUNCHES)
+    card_st = hlo.count(step("cuda"))
+    torch.cuda.synchronize()
+    launched = tuple(a - b for a, b in zip(
+        (fa.LAUNCHES, wk.LAUNCHES, wk.BWD_LAUNCHES), before))
+    meta_st = hlo.count(step("meta"))
+    assert (card_st.flops, card_st.bytes_) == (meta_st.flops, meta_st.bytes_)
+    assert card_st.kernels == meta_st.kernels
+    assert launched == tuple(card_st.kernels[n]["launches"] for n in (
+        "flash_attention", "wkv6", "wkv6_bwd")) == (1, 1, 1)

@@ -70,6 +70,56 @@ def _no_card():
         pytest.skip("a CUDA device is present: the default runs there")
 
 
+def test_import_check_covers_the_host_tools():
+    """The perf model, the analysis passes, the dry run and the trace
+    CLI are among the files the import check reads."""
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert {f"src/repro_torch/perfmodel/{m}.py" for m in (
+        "__init__", "interconnects", "simulator", "apps")} <= names
+    assert {f"src/repro_torch/analysis/{m}.py" for m in (
+        "__init__", "hlo", "verify", "lint_protocol")} <= names
+    assert {f"src/repro_torch/launch/{m}.py" for m in (
+        "dryrun", "mesh", "specs")} <= names
+    assert "src/repro_torch/trace.py" in names
+
+
+def test_meta_route_only_inside_the_counter():
+    """Meta tensors reach a kernel's wrapper only inside
+    ``analysis.hlo.count``, where the wrapper launches nothing; outside
+    it they raise as before, and a CPU/meta mix raises inside it too."""
+    from repro_torch import kernels
+    from repro_torch.analysis import hlo
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.rwkv6 import ops as wk
+
+    def meta(*shape, dtype=torch.float32):
+        return torch.zeros(shape, dtype=dtype, device="meta")
+
+    qkv = [meta(1, 2, 8, 32) for _ in range(3)]
+    with pytest.raises(ValueError, match="meta"):
+        fa.flash_attention(*qkv)
+    before = (fa.LAUNCHES, wk.LAUNCHES, wk.BWD_LAUNCHES, ops.LAUNCHES)
+
+    def calls():
+        out = fa.flash_attention(*qkv)
+        assert out.is_meta and out.shape == qkv[0].shape
+        o = wk.wkv6(*(meta(1, 2, 4, 8) for _ in range(4)), meta(2, 8))
+        assert o.is_meta and o.dtype == torch.float32
+        dst, sums = ops.cellcopy(meta(8, 128, dtype=torch.int32))
+        assert dst.is_meta and sums.shape == (8,)
+        with pytest.raises(ValueError, match="meta"):
+            fa.flash_attention(torch.zeros(1, 2, 8, 32), *qkv[1:])
+
+    st = hlo.count(calls)
+    assert (fa.LAUNCHES, wk.LAUNCHES, wk.BWD_LAUNCHES, ops.LAUNCHES) \
+        == before
+    assert {k: v["launches"] for k, v in st.kernels.items()} == {
+        "flash_attention": 1, "wkv6": 1, "cellcopy": 1}
+    assert kernels.COUNTERS == []
+    with pytest.raises(ValueError, match="meta"):
+        kernels.route("x", qkv[0])
+
+
 def test_comm_defaults_to_the_card():
     _no_card()
     arena = Arena(LocalPool(4 << 20), 0, initialize=True)
