@@ -191,7 +191,26 @@ Phases, each of which fails the run on error:
            ``compile_schedule(verify=True)`` for every schedule phases 3
            and 6 compiled, and ``lint_protocol`` over
            ``repro_torch/core``: no finding.
-9. report  the ``kernels`` JSON line (times at the main paths' shapes,
+9. examples every script of ``examples_torch/`` through its ``main`` on
+           the card (``examples_phase``), at the JAX package's examples'
+           defaults, but ``quickstart --steps 100`` (not 300) and
+           ``serve_decode --ranks 3 --sessions 24`` beside the default
+           ``serve_batch`` run (``EXAMPLES``): ``scaling_study`` (host
+           only), ``comm_v2_tour`` and ``rma_tour`` (4 processes),
+           ``cmpi_pingpong`` (2 processes, 8 B to 64 KiB, 100 iterations,
+           and the TCP baseline on the same CUDA buffers), ``serve_decode``
+           and ``quickstart``. Every rank of the ping-pong, the tours and
+           the serving tier's workers launched ``cellcopy`` (its router
+           none), quickstart ``flash_attention``; the examples' own checks
+           hold (hierarchical == ring, persistent slots stable, 0 bytes
+           copied by each notified-put consumer, the allgather exact, the
+           restart resumed at the trained step), every ping-pong message
+           byte-exact, ``flash_attention`` at quickstart's shape (heads
+           of 8, padded to the D = 32 instance) within phase 2's
+           tolerances of its plain version, the tour's ring allreduce copying
+           ``tour_ring_bytes`` on the rendezvous paths over its ranks; one
+           line of times an example.
+10. report the ``kernels`` JSON line (times at the main paths' shapes,
            ``cellcopy``'s beside ``Tensor.copy_`` (one at the serving
            tier's 4096 B page), its launches per path, ``flash_attention``
            at every shape phases 4 and 5 launch it at, beside SDPA,
@@ -203,8 +222,9 @@ Phases, each of which fails the run on error:
            long prompt, beside its FMA and split-TF32 bounds),
            one-way latency and bandwidth per path and size, one-sided
            latency and bandwidth per size, the serving tier's QPS and
-           latency, the serving numbers per model, the ``training`` and
-           ``cmpi_training`` lines, and the card's name and power limit.
+           latency, the serving numbers per model, the ``training``,
+           ``cmpi_training`` and ``examples`` lines, and the card's name
+           and power limit.
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
 or outside a checkout of the repository, it exits non-zero and prints no
@@ -358,6 +378,13 @@ EP = {"arch": "granite-moe-1b-a400m", "ranks": 4, "mesh": (2, 2),
       "decode": 8, "logit_tol": 1e-3, "check_cf": 8.0,
       "train_layers": 2, "train_rows": 2, "train_seq": 256,
       "grad_tol": 1e-4}
+# phase 9, the examples (examples_torch/), each through its main on the
+# card at the JAX package's examples' defaults, with two cuts: quickstart
+# trains 100 steps (the default is 300), and serve_decode runs the
+# distributed tier with 3 ranks and 24 sessions beside its serve_batch
+# run. The full-width runs of the same entry points are phases 3c to 7.
+EXAMPLES = {"quickstart": ["--steps", "100"],
+            "serve_ranks": ["--ranks", "3", "--sessions", "24"]}
 
 
 def fail(msg: str) -> None:
@@ -3294,6 +3321,178 @@ def static_phase(schedules: set) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the examples
+# ---------------------------------------------------------------------------
+
+def _launch_counts(zero: bool = False) -> dict:
+    """This process's launch counts of the port's kernels; with
+    ``zero``, set them to 0 (just before a main path)."""
+    from repro_torch.kernels.cellcopy import ops
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.rwkv6 import ops as wk
+    if zero:
+        ops.LAUNCHES = fa.LAUNCHES = wk.LAUNCHES = wk.BWD_LAUNCHES = 0
+    return {"cellcopy": ops.LAUNCHES, "flash_attention": fa.LAUNCHES,
+            "wkv6": wk.LAUNCHES, "wkv6_bwd": wk.BWD_LAUNCHES}
+
+
+def run_example(name: str, argv: list) -> tuple:
+    """``examples_torch/<name>.py``'s ``main(argv)`` on the card, its
+    launch counts in this process set to 0 just before and read just
+    after: returns (what it returned, the counts, seconds). An example
+    that raises fails the run."""
+    import importlib
+    if str(ROOT) not in sys.path:
+        sys.path.insert(0, str(ROOT))
+    mod = importlib.import_module(f"examples_torch.{name}")
+    _launch_counts(zero=True)
+    t0 = time.perf_counter()
+    try:
+        out = mod.main(argv)
+    except Exception:  # noqa: BLE001 — reported as the run's failure
+        import traceback
+        fail(f"example {name} {' '.join(argv)}:\n{traceback.format_exc()}")
+    return out, _launch_counts(), time.perf_counter() - t0
+
+
+def _rank_launches(name: str, launches: list, control: tuple = ()) -> None:
+    """Every rank but the ``control`` ones launched ``cellcopy``; those
+    launched none."""
+    if any(launches[r] for r in control) or min(
+            n for r, n in enumerate(launches) if r not in control) <= 0:
+        fail(f"example {name}: cellcopy launches per rank {launches} (a "
+             f"data rank launched none, or a control rank {control} some)")
+
+
+def tour_ring_bytes(tour) -> int:
+    """The bytes ``comm_v2_tour``'s ring allreduce copies on the
+    rendezvous paths, summed over its ranks: each of its ``N`` ranks
+    sends 2 (N - 1) chunks of ``VEC / N`` float64, each counted once, on
+    whichever side copied it (the sender into the receiver's posted
+    buffer, or into a staging object). One rank's share varies from run
+    to run; the sum does not, and is the JAX package's
+    (``tests/test_torch_examples.py``)."""
+    return 2 * (tour.N - 1) * tour.VEC * 8
+
+
+def examples_phase() -> dict:
+    """Phase 9: every script of ``examples_torch/`` through its
+    ``main([...])`` on the card, at the JAX package's examples'
+    defaults but for ``EXAMPLES``' cuts. Each multi-process example's
+    ranks report their own ``cellcopy`` launches (every rank > 0; the
+    serving tier's router, a control rank, 0), and the parent launches
+    nothing meanwhile; each example's own checks hold (it raises
+    otherwise), and so do these: the ping-pong's messages byte-exact in
+    all four columns, the tour's ring allreduce copying
+    ``tour_ring_bytes`` over its ranks (the copy count of CUDA payloads
+    per path), the notified-put consumers copying 0 bytes, the serving
+    tier finishing its sessions with exact checksums, the served tokens
+    in the vocabulary, and quickstart launching ``flash_attention`` and
+    resuming at its trained step. Before quickstart, the flash kernel at
+    its attention shape (heads of 8, run padded on the D = 32 instance)
+    against the plain version, bf16 and f32, within phase 2's
+    tolerances. Returns each example's figures and counts."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    res: dict = {}
+
+    out, counts, secs = run_example("scaling_study", [])
+    if sum(counts.values()) or sorted(out) != ["CG", "miniAMR"]:
+        fail(f"example scaling_study: {sorted(out)}, launches {counts}")
+    res["scaling_study"] = {"s": secs, "launches": counts}
+
+    ranks = {}
+    for name in ("comm_v2_tour", "rma_tour", "cmpi_pingpong"):
+        out, counts, secs = run_example(name, [])
+        if sum(counts.values()):
+            fail(f"the parent launched kernels during example {name}: "
+                 f"{counts}")
+        ranks[name] = out["ranks"]
+        launches = [r["launches"] for r in out["ranks"]]
+        _rank_launches(name, launches)
+        res[name] = {"s": secs, "launches_per_rank": launches}
+        if name == "cmpi_pingpong":
+            if not all(out["exact"].values()):
+                fail(f"example cmpi_pingpong: {out['exact']}")
+            res[name]["us"] = out["us"]
+
+    copied = sum(v for r in ranks["comm_v2_tour"] for k, v in
+                 r["allreduce_paths"].items() if k.startswith("rndv_"))
+    want = tour_ring_bytes(sys.modules["examples_torch.comm_v2_tour"])
+    if copied != want:
+        fail(f"example comm_v2_tour: the ring allreduce's rendezvous "
+             f"chunks copied {copied} B over the ranks, not {want}")
+    res["comm_v2_tour"].update(
+        allreduce_rndv_copied=copied,
+        allreduce_copied=[r["allreduce_copied"]
+                          for r in ranks["comm_v2_tour"]],
+        thresholds=[r["threshold"] for r in ranks["comm_v2_tour"]])
+    consumers = [r["recv_copies"] for r in ranks["rma_tour"]
+                 if "recv_copies" in r]
+    if len(consumers) != 2 or any(consumers):
+        fail(f"example rma_tour: consumers copied {consumers} B")
+    res["rma_tour"]["paths"] = [r["paths"] for r in ranks["rma_tour"]]
+
+    out, counts, secs = run_example("serve_decode", [])
+    toks = np.asarray(out["tokens"])
+    vocab = get_config("smollm-135m").reduced().vocab_size
+    if toks.shape != (4, 24) or toks.min() < 0 or toks.max() >= vocab:
+        fail(f"example serve_decode: tokens {toks.shape} "
+             f"[{toks.min()}, {toks.max()}]")
+    res["serve_decode"] = {"s": secs, "launches": counts,
+                           "decode_tok_per_s": out["decode_tok_per_s"]}
+
+    out, counts, secs = run_example("serve_decode", EXAMPLES["serve_ranks"])
+    _rank_launches("serve_decode --ranks 3", out["launches_by_rank"],
+                   control=(0,))
+    if out["sessions"] != 24 or out["bad_checksums"] \
+            or out["stats_tokens"] != out["tokens"]:
+        fail(f"example serve_decode --ranks 3: {out['sessions']} sessions, "
+             f"{out['bad_checksums']} bad checksums, stats_tokens "
+             f"{out['stats_tokens']} of {out['tokens']}")
+    res["serve_decode_ranks"] = {
+        "s": secs, "launches_per_rank": out["launches_by_rank"],
+        **{k: out[k] for k in ("sessions", "tokens", "qps", "p50_us",
+                               "p99_us")}}
+
+    # quickstart's attention shape (the reduced config's heads of 8, on
+    # the kernel's D = 32 instance, padded) against the plain version
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    cfg = get_config("smollm-135m").reduced()
+    shape = (8, cfg.n_heads, cfg.n_kv_heads, 64, cfg.d_head)
+    fcheck = FloatCheck("flash_attention")
+    g = torch.Generator(device="cuda").manual_seed(23)
+    tf32 = torch.backends.cuda.matmul.allow_tf32     # phase 7 sets it
+    torch.backends.cuda.matmul.allow_tf32 = False    # an f32 plain version
+    try:
+        for dt, tol, l2 in (("bfloat16", 3e-2, FLASH_L2),
+                            ("float32", 1e-5, None)):
+            q, k, v = _flash_inputs(*shape, dt, g)
+            fcheck.close(f"quickstart {shape} {dt}",
+                         fa.flash_attention(q, k, v),
+                         fa_ref.attention_ref(q, k, v), tol, l2=l2, kind=dt)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    out, counts, secs = run_example("quickstart", EXAMPLES["quickstart"])
+    if counts["flash_attention"] <= 0:
+        fail(f"example quickstart launched no flash_attention: {counts}")
+    hist = np.asarray(out["history"])
+    if len(hist) != 100 or not np.isfinite(hist).all() \
+            or hist[-10:].mean() >= hist[:10].mean():
+        fail(f"example quickstart: losses {hist[:3]} ... {hist[-3:]}")
+    res["quickstart"] = {
+        "s": secs, "launches": counts, "tokens_per_s": out["tokens_per_s"],
+        "flash_check": {"shape": shape, **fcheck.by_kind},
+        "first_loss": float(hist[0]), "final_loss": out["final_loss"],
+        "restart": out["restart"]}
+    return res
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -3604,7 +3803,20 @@ def main() -> None:
         for k, n in r["charged_launches"].items():
             dry_launches.setdefault(k, {})[cell] = n
 
-    # 9. report
+    # 9. the examples, each path's counts to 0 just before and read just
+    # after it (in run_example; the ranks' in their own processes)
+    t0 = time.perf_counter()
+    examples = examples_phase()
+    say(f"[examples] phase {time.perf_counter() - t0:.1f} s")
+    for name, ex in examples.items():
+        say(f"[examples] {name}: {json.dumps(ex)}")
+    pp = examples["cmpi_pingpong"]["us"]
+    say("[examples] cmpi_pingpong us (two-sided, persistent, one-sided, "
+        "TCP) by size: " + "; ".join(
+            f"{s}: " + ", ".join(f"{pp[c][s]:.1f}" for c in (
+                "two", "pers", "one", "tcp")) for s in pp["two"]))
+
+    # 10. report
     for r in rows:
         say(f"[time] {json.dumps(r)}")
     flash_rows, wkv_rows = model_kernel_timings()
@@ -3618,7 +3830,10 @@ def main() -> None:
                    training["restart"]["arena"]["cellcopy_launches"],
                "cmpi_train": cmpi["launches"]["cellcopy"],
                "ep_serve": ep["launches_serve"]["cellcopy"],
-               "dist_train_step": ep["launches_train"]["cellcopy"]}
+               "dist_train_step": ep["launches_train"]["cellcopy"],
+               **{f"example {k}": sum(examples[k]["launches_per_rank"])
+                  for k in ("cmpi_pingpong", "comm_v2_tour", "rma_tour",
+                            "serve_decode_ranks")}}
     entries = [{
         "name": "cellcopy", "route": "cuda",
         "source": "src/repro_torch/csrc/cellcopy.cu",
@@ -3655,6 +3870,8 @@ def main() -> None:
                 ep["launches_serve"][name]
             by_model[f"{EP['arch']} (dist train step, {EP['ranks']} "
                      "ranks)"] = ep["launches_train"][name]
+            by_model["smollm-135m reduced (example quickstart)"] = \
+                examples["quickstart"]["launches"][name]
         entries.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{src}", "replaces": replaces,
@@ -3699,6 +3916,7 @@ def main() -> None:
     say(json.dumps({"steps": {"grad_accum": steps_ga, "ep": ep}}))
     say(json.dumps({"counts": {"roofline": roofline, "trace": traced,
                                "static": static}}))
+    say(json.dumps({"examples": examples}))
     say(f"[done] {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": entries}))
     say(nvidia_smi())

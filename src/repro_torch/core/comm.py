@@ -46,8 +46,8 @@ Tensors in, tensors out: method collectives take CPU or CUDA tensors
 (numpy arrays are taken as CPU tensors) and return tensors on the same
 device. ``Comm(device="cuda")`` — the default — runs on the card and
 raises without one; pass ``device="cpu"`` to run on the CPU. The
-one-sided window surface (``win_allocate`` and friends) is not part of
-this package yet.
+one-sided windows (``comm.win_allocate``, ``comm.win_create_dynamic``)
+are in ``core/rma.py``.
 """
 from __future__ import annotations
 

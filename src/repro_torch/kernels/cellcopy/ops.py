@@ -15,14 +15,16 @@ Two surfaces:
   pool), any alignment, any length.
 
 ``LAUNCHES`` counts kernel launches, so a run can show that its path went
-through the kernel. Every launch, and every call of the plain version,
-charges ``work`` to an active counter (``kernels.charged``); under the
-dry run's counter, meta tensors take the ``"meta"`` route, which launches
-nothing and returns empty outputs.
+through the kernel; ``thread_launches()`` counts the calling thread's, for
+the ranks of ``run_threads``, which share one process. Every launch, and
+every call of the plain version, charges ``work`` to an active counter
+(``kernels.charged``); under the dry run's counter, meta tensors take the
+``"meta"`` route, which launches nothing and returns empty outputs.
 """
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -36,6 +38,12 @@ SLICE_BYTES = THREADS * VECTOR   # a cell's bytes per CTA of its cluster
 MAX_CLUSTER = 8                  # the portable thread-block cluster size
 DEFAULT_CELL_BYTES = 16384       # data-plane checksum cell (16 KiB)
 LAUNCHES = 0
+_THREAD = threading.local()
+
+
+def thread_launches() -> int:
+    """Kernel launches made by the calling thread so far."""
+    return getattr(_THREAD, "launches", 0)
 
 
 def work(nbytes: int, cell_bytes: int) -> tuple[int, int]:
@@ -161,6 +169,7 @@ def copy_bytes(dst_ptr: int, src_ptr: int, nbytes: int, cell_bytes: int,
         cell_bytes, block_cells, ctypes.c_void_p(sums_out.data_ptr()),
         ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     LAUNCHES += 1
+    _THREAD.launches = thread_launches() + 1
     if rc != 0:
         raise RuntimeError(f"cellcopy launch failed: CUDA error {rc}")
 

@@ -20,6 +20,9 @@ launch (counted once) and whose backward is ``bwd.attention_bwd``, torch
 ops that recompute the softmax a block of query rows at a time. Without
 grad (``torch.no_grad``, or no input that requires it) the Function runs
 its forward and records no graph.
+
+A head size below the kernel's instances (the reduced configs' 8) runs
+on the instance ``padded_head`` names, with zero columns (``pad_head``).
 """
 from __future__ import annotations
 
@@ -123,9 +126,38 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int):
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"flash_attention: dtypes {q.dtype}, {k.dtype}, "
                          f"{v.dtype}; float32 or bfloat16, all alike")
-    if q.shape[3] not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head size {q.shape[3]} not "
-                         f"in {HEAD_DIMS}")
+    if padded_head(q.shape[3]) is None:
+        raise ValueError(f"flash_attention: head size {q.shape[3]} is "
+                         f"none of {HEAD_DIMS} nor one of them over a "
+                         f"power of 4")
+
+
+def padded_head(d: int) -> int | None:
+    """The kernel instance that runs head size ``d``: ``d`` itself, or
+    the smallest of ``HEAD_DIMS`` that is ``d`` times a power of 4 (so
+    that ``pad_head`` scales q exactly); None if there is none."""
+    for x in HEAD_DIMS:
+        r = x // d if d > 0 else 0
+        if r and x % d == 0 and r & (r - 1) == 0 and \
+                (r.bit_length() - 1) % 2 == 0:
+            return x
+    return None
+
+
+def pad_head(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tuple:
+    """q, k, v (head size d the last axis) padded to D = ``padded_head(d)``
+    columns: the zero columns add nothing to a score, and q is scaled by
+    sqrt(D / d), a power of 2 and so exact, so that the kernel's
+    1 / sqrt(D) is 1 / sqrt(d). The attention at d is the first d
+    columns of the padded output."""
+    d = q.shape[3]
+    x = padded_head(d)
+    if x == d:
+        return q, k, v
+    f = 1 << ((x // d).bit_length() - 1) // 2
+    pad = (0, x - d)
+    return (torch.nn.functional.pad(q * f, pad),
+            torch.nn.functional.pad(k, pad), torch.nn.functional.pad(v, pad))
 
 
 def _tma_ready(t: torch.Tensor, heads: int) -> bool:
@@ -142,21 +174,23 @@ def _launch(q, k, v, causal: bool, heads: int) -> torch.Tensor:
     """Run the kernel on q (.., H, .., D) and k, v (.., KV, .., D) in the
     layout whose head axis is ``heads`` (1: BHSD, 2: BSHD); the output
     has q's shape and layout. A tensor the kernel cannot address as it
-    lies is first copied into a fresh contiguous one."""
+    lies is first copied into a fresh contiguous one, and a head size
+    below the instances is padded (``pad_head``)."""
     global LAUNCHES
     if q.is_meta:                    # the dry run: nothing to launch
         return torch.empty_like(q)
     from repro_torch.kernels.build import load
     lib = load()
+    head = q.shape[3]
     q, k, v = (t if _tma_ready(t, heads) else
                t.clone(memory_format=torch.contiguous_format)
-               for t in (q, k, v))
+               for t in pad_head(q, k, v))
     out = torch.empty_like(q)
     seq = 3 - heads
     b, s, d = q.shape[0], q.shape[seq], q.shape[3]
     h, kv = q.shape[heads], k.shape[heads]
     if b * h * s == 0:
-        return out
+        return out[..., :head]
 
     def strides(t):                  # (batch, head, seq) in elements
         return t.stride(0), t.stride(heads), t.stride(seq)
@@ -170,7 +204,7 @@ def _launch(q, k, v, causal: bool, heads: int) -> torch.Tensor:
     LAUNCHES += 1
     if rc != 0:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {rc}")
-    return out
+    return out if head == d else out[..., :head].contiguous()
 
 
 class FlashAttention(torch.autograd.Function):

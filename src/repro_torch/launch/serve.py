@@ -106,11 +106,14 @@ def serve_distributed(*, ranks: int = 3, sessions: int = 32,
                       quiet: bool = False, device="cuda") -> dict:
     """Run the multi-rank serve tier (router + workers over one Comm,
     on the card unless ``device="cpu"``) and return the router's
-    report. Thin wrapper over ``repro_torch.serve.run_serve``."""
+    report, with every rank's ``cellcopy`` launches over its serve run
+    (``launches_by_rank``, the router's first). Thin wrapper over
+    ``repro_torch.serve.run_serve``."""
     from repro_torch.serve import ServeConfig, run_serve
     cfg = ServeConfig(sessions=sessions, rate=rate, seed=seed)
     reports = run_serve(cfg, ranks=ranks, device=device)
-    router = reports[0]
+    router = dict(reports[0],
+                  launches_by_rank=[r["launches"] for r in reports])
     if not quiet:
         print(f"[serve] {router['sessions']} sessions on {ranks} ranks "
               f"({ranks - 1} workers): qps {router['qps']:.1f}, "

@@ -539,8 +539,9 @@ def moe_apply_ep(params: Params, cfg: ModelConfig, x, dist):
     gradient is divided by TP before that sum, to count once. A whole
     expert leaf gets the gradient of the rank's block only: the caller
     sums it over ``model`` (``train.steps``). The aux is the rank's own
-    rows'; the JAX package returns data shard 0's on every shard
-    (``ROADMAP.md`` Queue 3), though its gradient is the shards' mean.
+    rows'; the JAX package returns data shard 0's on every shard, though
+    its gradient is the shards' mean, and ``train.steps.make_train_step``
+    reports shard 0's as it does.
     """
     E, K = cfg.moe.n_experts, cfg.moe.top_k
     tp = dist.model_size

@@ -390,9 +390,12 @@ def _logits(params, cfg: ModelConfig, x_last):
     return logits[..., :cfg.vocab_size]
 
 
+AUX_WEIGHT = 0.01    # the MoE aux loss's weight in ``loss_fn``'s total
+
+
 def loss_fn(params: Params, cfg: ModelConfig, batch, *, dist=None):
     """Cross-entropy LM loss over ``batch["labels"]`` (B, S), masked
-    where a label is < 0. Returns (loss + 0.01 * the MoE aux loss,
+    where a label is < 0. Returns (loss + AUX_WEIGHT * the MoE aux loss,
     {"loss", "aux", "tokens"}), f32 scalars. The logits are the compute
     dtype's product, in f32, sliced to ``vocab_size``; where
     ``dist.vocab_parallel(cfg)``, ``dist.vp_cross_entropy`` computes the
@@ -410,7 +413,7 @@ def loss_fn(params: Params, cfg: ModelConfig, batch, *, dist=None):
         ce = lse - ll
     mask = (labels >= 0).float()
     loss = (ce * mask).sum() / torch.clamp(mask.sum(), min=1.0)
-    total = loss + 0.01 * aux
+    total = loss + AUX_WEIGHT * aux
     return total, {"loss": loss, "aux": aux, "tokens": mask.sum()}
 
 

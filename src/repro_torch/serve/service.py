@@ -12,7 +12,9 @@ around the serve phase and attaches the delta to its report
 (``stats_delta``), so callers can assert the data plane's contract —
 page bytes appear ONLY under the origin-side ``rma_put``/``rma_get``
 (and 8-byte ``raccumulate`` stats words in both), never under
-``rndv_staged``, and a passive page home drains nothing.
+``rndv_staged``, and a passive page home drains nothing. The report's
+``launches`` are the rank's ``cellcopy`` launches over the same span
+(its own thread's: the thread runtime's ranks share one process).
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ import dataclasses
 import numpy as np
 
 from repro_torch.core.runtime import run_threads
+from repro_torch.kernels.cellcopy import ops
 from repro_torch.serve import wire
 from repro_torch.serve.pages import PageDirectory, PageStore
 from repro_torch.serve.router import Router
@@ -82,6 +85,7 @@ def serve_rank(env, cfg: ServeConfig) -> dict:
         stats_buf = None
         stats_addr = int(comm.bcast(None)[0])
     before = comm.arena.view.stats.snapshot()
+    launched = ops.thread_launches()
     if comm.rank == 0:
         report = Router(comm, cfg, directory, win).run()
     else:
@@ -89,6 +93,7 @@ def serve_rank(env, cfg: ServeConfig) -> dict:
                         stats_addr=stats_addr).run()
     comm.barrier()                # all traffic quiesced before teardown
     report["stats_delta"] = comm.arena.view.stats.delta(before)
+    report["launches"] = ops.thread_launches() - launched
     if comm.rank == 0:
         report["stats_tokens"] = int(np.frombuffer(
             stats_buf.read(), dtype=np.int64)[0])

@@ -78,6 +78,17 @@ def _model_partial(cfg: ModelConfig, dist: DistContext, path: str,
             and leaf.ndim == 4 and leaf.shape[1] == E)
 
 
+def _aux_is_shard_0s(cfg: ModelConfig, dist: DistContext) -> bool:
+    """Whether the MoE layers run ``blocks.moe_apply_ep``, whose aux the
+    JAX package returns from data shard 0 on every shard (its
+    ``shard_map`` declares ``out_specs=P()`` unchecked), so that its
+    step reports shard 0's aux in ``loss`` and ``aux``; the gradient is
+    still the mean of the shards' aux gradients."""
+    return (cfg.moe is not None and cfg.moe_shard == "ep_a2a"
+            and dist.model_size > 1
+            and cfg.moe.n_experts % dist.model_size == 0)
+
+
 def reduce_grads(cfg: ModelConfig, dist: Optional[DistContext], params,
                  grads: list) -> list:
     """The gradients of the global batch from a rank's ``grads`` (leaves
@@ -125,7 +136,9 @@ def make_train_step(cfg: ModelConfig, shape: InputShape,
     the gradients in f32, divides by ``ga`` (at ``ga == 1`` the gradients
     are taken as they are) and reduces them over the ranks
     (``reduce_grads``). It returns them with the metrics: the means over
-    microbatches, then over the dp ranks (``tokens`` their sum).
+    microbatches, then over the dp ranks (``tokens`` their sum), except
+    that under ``blocks.moe_apply_ep`` ``aux``, and the aux term of
+    ``loss``, are data shard 0's, as the JAX package reports them.
     ``fn(params, opt_state, batch)`` runs ``grads`` and then
     ``apply_updates`` in place."""
     oc = oc or opt.for_model(cfg)
@@ -163,14 +176,21 @@ def make_train_step(cfg: ModelConfig, shape: InputShape,
             stats.append(torch.stack([total.detach(), m["aux"].detach(),
                                       m["tokens"].detach()]))
         grads = acc if ga == 1 else [a / ga for a in acc]
-        vec = torch.stack(stats).mean(0)
+        total, aux, tokens = torch.stack(stats).mean(0).unbind()
         if d is not None and d.bspec is not None:
-            vec = d.dp_comm.allreduce(vec) * torch.tensor(
-                [1 / d.dp_size, 1 / d.dp_size, 1.0], device=vec.device)
-        loss, aux, tokens = vec.unbind()
+            if _aux_is_shard_0s(cfg, d):
+                # the dp mean below then gives data shard 0's aux, and
+                # the mean total with its aux term swapped for shard 0's
+                w = d.dp_size if d.dp_index == 0 else 0
+                total = total + lm.AUX_WEIGHT * (w - 1) * aux
+                aux = w * aux
+            vec = d.dp_comm.allreduce(torch.stack([total, aux, tokens]))
+            total, aux, tokens = (vec * torch.tensor(
+                [1 / d.dp_size, 1 / d.dp_size, 1.0],
+                device=vec.device)).unbind()
         return (lm.tree_unflatten(params, reduce_grads(cfg, d, params,
                                                        grads)),
-                {"loss": loss, "aux": aux, "tokens": tokens})
+                {"loss": total, "aux": aux, "tokens": tokens})
 
     def train_step(params, opt_state, batch):
         grads, metrics = grads_of(params, batch)

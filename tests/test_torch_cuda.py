@@ -99,6 +99,27 @@ def test_flash_gradient_on_the_card(card, dtype, tol):
             want.abs().max())
 
 
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 3e-2)])
+def test_flash_small_head_on_the_card(card, dtype, tol):
+    """Head size 8 (the reduced configs') runs on the D = 32 instance,
+    padded: one launch a call, within ``chip_smoke``'s flash tolerance
+    of the plain version, in both layouts."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention import ref
+    g = torch.Generator(device="cuda").manual_seed(1)
+    q, k, v = (torch.randn(shape, generator=g, device="cuda").to(dtype)
+               for shape in ((8, 4, 64, 8), (8, 2, 64, 8), (8, 2, 64, 8)))
+    want = ref.attention_ref(q, k, v).float()
+    launches = fa.LAUNCHES
+    got = fa.flash_attention(q, k, v).float()
+    bshd = fa.flash_attention_bshd(*(t.transpose(1, 2) for t in (q, k, v)))
+    assert fa.LAUNCHES == launches + 2
+    for out in (got, bshd.transpose(1, 2).float()):
+        assert out.shape == want.shape
+        assert bool(((out - want).abs() <= tol + tol * want.abs()).all())
+
+
 def test_arena_checkpoint_moves_cuda_leaves_with_cellcopy(card):
     from repro_torch.core import Arena, LocalPool
     from repro_torch.kernels.cellcopy import ops as cc

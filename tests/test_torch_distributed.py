@@ -844,11 +844,13 @@ def test_moe_apply_ep_matches_jax_shard_map(cf, tag, port_ep, mesh_ref):
 
 
 def test_moe_apply_ep_aux_is_data_shard_0s(port_ep, mesh_ref):
-    """The JAX package's moe_apply_ep returns data shard 0's aux loss on
-    every shard (``out_specs=P()`` without a check); its gradient is the
-    mean of the shards' (the test above). The port returns each rank's
-    own rows' aux: data 0's ranks give the JAX value, data 1's another
-    (``ROADMAP.md`` Queue 3)."""
+    """moe_apply_ep returns each rank's own rows' aux loss, alike over
+    ``model``: on data shard 0's ranks it is the value the JAX package's
+    moe_apply_ep returns on every shard (``out_specs=P()`` without a
+    check), on data shard 1's another. Its gradient is the mean of the
+    shards' (the test above), and make_train_step reports shard 0's aux
+    as the JAX package's step does
+    (``test_train_step_under_a_dist_matches_one_process``)."""
     for cf in EP_CAPACITY:
         want = float(mesh_ref[f"ep_{cf}_prefill_aux"])
         by_data = {}
@@ -1012,9 +1014,11 @@ def test_train_step_under_a_dist_matches_one_process(mesh_ref):
     data ranks' rows; the params after the step are the optimizer's step
     with exactly those gradients, alike on every rank, and within
     STEP_UPDATE_TOL x each leaf's largest update of the reference's
-    step. The loss less its aux term is the reference's (rtol
-    LOSS_RTOL); the aux term itself differs (the reference's is data
-    shard 0's, ``test_moe_apply_ep_aux_is_data_shard_0s``)."""
+    step. The reported loss and aux are the reference's step's (rtol
+    LOSS_RTOL) on every rank: its aux is data shard 0's
+    (``test_moe_apply_ep_aux_is_data_shard_0s``), so one process's,
+    the mean of the two shards' aux, differs; the loss less its aux
+    term is one process's."""
     from repro_torch.train import steps as ST
     cfg = _dist_step_cfg()
     jcfg = dataclasses.replace(get_config("granite-moe-1b-a400m").reduced(),
@@ -1040,11 +1044,13 @@ def test_train_step_under_a_dist_matches_one_process(mesh_ref):
             ref = mesh_ref[f"dist_param_{i}"]
             assert float(np.abs(a - ref).max()) <= STEP_UPDATE_TOL * float(
                 np.abs(ref - p0[i]).max())
-        np.testing.assert_allclose(r["loss"], float(wm["loss"]),
-                                   rtol=LOSS_RTOL)
         assert r["step_loss"] == r["loss"]
-        coef = 0.01                      # lm.loss_fn's aux weight
+        np.testing.assert_allclose(r["loss"], float(mesh_ref["dist_loss"]),
+                                   rtol=LOSS_RTOL)
+        np.testing.assert_allclose(r["aux"], float(mesh_ref["dist_aux"]),
+                                   rtol=LOSS_RTOL)
+        coef = lm.AUX_WEIGHT
         np.testing.assert_allclose(
             r["loss"] - coef * r["aux"],
-            float(mesh_ref["dist_loss"]) - coef * float(mesh_ref["dist_aux"]),
-            rtol=LOSS_RTOL)
+            float(wm["loss"]) - coef * float(wm["aux"]), rtol=LOSS_RTOL)
+    assert abs(float(wm["aux"]) - res[0]["aux"]) > 1e-3

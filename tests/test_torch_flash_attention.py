@@ -105,6 +105,35 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         h = z(1, 2, 8, 32).half()
         ops.flash_attention(h, h, h)
 
+@pytest.mark.parametrize("d,padded", [(8, 32), (16, 64), (4, 64), (2, 32),
+                                      (32, 32), (64, 64), (128, 128),
+                                      (48, None), (12, None), (256, None)])
+def test_small_heads_run_on_a_padded_instance(d, padded):
+    """A head size below the kernel's instances (the reduced configs'
+    8) runs on the instance ``padded_head`` names: zero columns and q
+    scaled by a power of 2, so the first d columns of the padded
+    attention are the attention at d, to f32 rounding (the plain
+    version stands in for the kernel); sizes with no such instance are
+    refused."""
+    assert ops.padded_head(d) == padded
+    if padded is None:
+        with pytest.raises(ValueError):
+            ops.flash_attention(*(torch.zeros(1, 2, 8, d) for _ in "qkv"))
+        return
+    g = torch.Generator().manual_seed(d)
+    q, k, v = (torch.randn(2, 4, 37, d, generator=g) * 3 for _ in "qkv")
+    k, v = k[:, :2], v[:, :2]                    # GQA: 4 heads over 2
+    pq, pk, pv = ops.pad_head(q, k, v)
+    assert pq.shape[3] == pk.shape[3] == pv.shape[3] == padded
+    for causal in (True, False):
+        want = ref.attention_ref(q, k, v, causal=causal)
+        got = ref.attention_ref(pq, pk, pv, causal=causal)
+        np.testing.assert_allclose(got[..., :d], want, rtol=1e-6, atol=1e-6)
+        assert not got[..., d:].any()
+        np.testing.assert_array_equal(
+            ops.flash_attention(q, k, v, causal=causal), want)
+
+
 
 class _FakeLibrary:
     """Stands in for the CUDA library: records what the wrapper would

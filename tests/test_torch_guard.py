@@ -20,8 +20,9 @@ from repro_torch.core.pool import IncoherentPool, RankCache  # noqa: E402
 from repro_torch.kernels.cellcopy import ops  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
+EXAMPLE_FILES = sorted((ROOT / "examples_torch").glob("*.py"))
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py"] + EXAMPLE_FILES
 
 
 def _imported_modules(path: Path):
@@ -37,8 +38,34 @@ def _imported_modules(path: Path):
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_port_imports_neither_jax_nor_repro(path):
     bad = [m for m in _imported_modules(path)
-           if m.split(".")[0] in ("jax", "jaxlib", "repro")]
+           if m.split(".")[0] in ("jax", "jaxlib", "repro", "benchmarks")]
     assert not bad, f"{path.name} imports {bad}"
+
+
+def test_import_check_covers_the_examples():
+    """The six examples are among the files the import check reads,
+    which also refuses ``benchmarks`` (the port keeps its own TCP
+    ping-pong)."""
+    assert [p.name for p in EXAMPLE_FILES] == sorted(
+        p.name for p in (ROOT / "examples").glob("*.py"))
+    assert len(EXAMPLE_FILES) == 6
+
+
+@pytest.mark.parametrize("name", ["cmpi_pingpong", "comm_v2_tour",
+                                  "rma_tour", "serve_decode", "quickstart"])
+def test_examples_default_to_the_card(name, monkeypatch):
+    """Each example but the host-only scaling study runs on the card
+    unless ``--device cpu`` is given: here, with no card, it raises
+    before it starts a process or trains a step."""
+    _no_card()
+    import importlib
+    mod = importlib.import_module(f"examples_torch.{name}")
+    argv = {"serve_decode": [], "quickstart": ["--steps", "1"]}.get(name, [])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mod.main(argv)
+    if name == "serve_decode":
+        with pytest.raises(RuntimeError, match="CUDA"):
+            mod.main(["--ranks", "2", "--sessions", "2"])
 
 
 def test_import_check_covers_windows_and_serving():
