@@ -57,7 +57,13 @@ over the ASTs of ``src/repro_torch/core``:
     whose test checks the ``.enabled`` predicate, and its arguments
     must be plain names/ints — no f-strings, dict/list/set displays,
     comprehensions or ``dict()`` calls, which would allocate eagerly
-    on every pass even while tracing is off.
+    on every pass even while tracing is off. The port's tracer also
+    records spans and times the core's stream syncs; the same holds for
+    each call of a span or sync-timing method (``_SPAN_CALLS``:
+    ``open_span``, ``close_span``, ``mark``, ``synced`` ...) in the
+    files that make them: the tick-path files and ``coherence.py``,
+    ``pool.py`` and ``comm.py``. (``emit`` keeps the reference's scope,
+    the tick-path files.)
 
 CLI: ``python -m repro_torch.analysis.lint_protocol [paths...]``
 (defaults to ``src/repro_torch/core``); prints ``path:line: LPxxx message`` per
@@ -92,6 +98,12 @@ _MB_RECEIVER_FIELDS = {"_MB_TAG", "_MB_DEST", "_MB_CAP"}
 _MB_WRITER = re.compile(r"#\s*mb-writer:\s*(sender|receiver)")
 
 _TRACE_FILES = {"progress.py", "pt2pt.py"}
+# the tracer's span and sync-timing methods, and the files that call them
+_SPAN_CALLS = {"open_span", "open_child", "close_span", "push_span",
+               "pop_span", "leave_span", "mark", "add_waits", "end_send",
+               "dequeued", "recv_done", "staged", "ack_seen", "synced",
+               "send_seq", "call_seq"}
+_SPAN_FILES = _TRACE_FILES | {"coherence.py", "pool.py", "comm.py"}
 _EMIT_ARG_BANNED = (ast.JoinedStr, ast.Dict, ast.DictComp, ast.ListComp,
                     ast.SetComp, ast.GeneratorExp)
 
@@ -377,14 +389,15 @@ def _mentions_enabled(test: ast.AST) -> bool:
 
 def _check_trace_guards(path: str, fname: str, tree: ast.Module,
                         out: list) -> None:
-    if fname not in _TRACE_FILES:
+    emits, spans = fname in _TRACE_FILES, fname in _SPAN_FILES
+    if not (emits or spans):
         return
 
-    def check_emit(nd: ast.Call, guarded: bool) -> None:
+    def check_emit(nd: ast.Call, guarded: bool, what: str = "emit") -> None:
         if not guarded:
             out.append(LintFinding(
                 "LP005", path, nd.lineno,
-                "trace emit() in a tick path outside an '.enabled' "
+                f"trace {what}() in a tick path outside an '.enabled' "
                 "guard — disabled-mode cost must be one predicate "
                 "check (tr = self.tracer; if tr.enabled: tr.emit(...))"))
         for a in list(nd.args) + [kw.value for kw in nd.keywords]:
@@ -395,18 +408,21 @@ def _check_trace_guards(path: str, fname: str, tree: ast.Module,
                    for sub in ast.walk(a)):
                 out.append(LintFinding(
                     "LP005", path, a.lineno,
-                    "trace emit() argument builds an f-string/dict/"
+                    f"trace {what}() argument builds an f-string/dict/"
                     "comprehension — arguments must be plain names or "
-                    "ints (records are five int64 words; formatting "
+                    "ints (records are int64 words; formatting "
                     "belongs in the exporter)"))
                 break
 
     def visit(node: ast.AST, guarded: bool) -> None:
         if isinstance(node, ast.Call):
             f = node.func
-            if (isinstance(f, ast.Attribute) and f.attr == "emit") or \
-                    (isinstance(f, ast.Name) and f.id == "emit"):
+            if emits and ((isinstance(f, ast.Attribute) and f.attr == "emit")
+                          or (isinstance(f, ast.Name) and f.id == "emit")):
                 check_emit(node, guarded)
+            elif spans and isinstance(f, ast.Attribute) \
+                    and f.attr in _SPAN_CALLS:
+                check_emit(node, guarded, f.attr)
         if isinstance(node, ast.If) and _mentions_enabled(node.test):
             for b in node.body:
                 visit(b, True)

@@ -45,10 +45,9 @@ from __future__ import annotations
 
 from dataclasses import dataclass, field
 
-import torch
-
 from repro_torch.core.pool import (CACHELINE, IncoherentPool, Pool, as_u8,
-                                   is_device)
+                                   device_sync, is_device)
+from repro_torch.core.trace import NULL_TRACER, SP_COPY
 
 MODES = ("coherent", "incoherent", "uncacheable")
 
@@ -139,6 +138,9 @@ class CoherentView:
         self.mode = mode
         self.stats = ProtocolStats()
         self._inc = isinstance(pool, IncoherentPool)
+        # the rank's tracer: the first communicator over this view's
+        # arena sets it (its split/dup children share it)
+        self.tracer = NULL_TRACER
         if mode == "incoherent" and not self._inc:
             raise ValueError("incoherent mode requires an IncoherentPool")
 
@@ -199,16 +201,20 @@ class CoherentView:
         self.stats.copied_bytes += n
         o = off
         dev = False
+        cp = -1
         for v in views:
             if len(v):
                 if is_device(v):
+                    tr = self.tracer
+                    if tr.enabled and not dev:
+                        cp = tr.open_child(SP_COPY, tr.cur, n)
                     self.pool.write_device(o, v)
                     dev = True
                 else:
                     self.pool.write(o, v)
                 o += len(v)
         if dev:
-            torch.cuda.current_stream().synchronize()
+            device_sync(self.tracer, cp)
         if self.mode == "uncacheable":
             self.stats.uncached_ops += self.stats.lines(n)
             return n
@@ -258,8 +264,12 @@ class CoherentView:
     def _load_into(self, off: int, d) -> int:
         if not is_device(d):
             return self.pool.readinto(off, d)
+        tr = self.tracer
+        cp = -1
+        if tr.enabled:
+            cp = tr.open_child(SP_COPY, tr.cur, len(d))
         n = self.pool.read_device(off, d)
-        torch.cuda.current_stream().synchronize()
+        device_sync(tr, cp)
         return n
 
     # ------------------------------------------------------------------

@@ -45,6 +45,7 @@ from repro_torch.core.progress import (CollRequest, _HeapBufs, _ResidentBufs,
                                  _SchedExec)
 from repro_torch.core.pt2pt import Communicator
 from repro_torch.core.sched import Schedule, SendOp, compile_schedule
+from repro_torch.core.trace import NULL_TRACER
 
 _T = 0x7F000000   # legacy tag space (alltoall pairwise lanes)
 _META_BYTES = 192  # fixed-size dtype/shape descriptor for bcast
@@ -140,11 +141,12 @@ def shards_to_chunk_order(flat: torch.Tensor, n: int) -> torch.Tensor:
     return torch.cat([parts[(c - 1) % n] for c in range(n)])
 
 
-def take(view: torch.Tensor) -> torch.Tensor:
+def take(view: torch.Tensor, tr=NULL_TRACER) -> torch.Tensor:
     """A private copy of a result view (a slot or a pool window). On the
-    card the bytes move through the cellcopy kernel."""
+    card the bytes move through the cellcopy kernel (a ``pool.copy``
+    span of ``tr``)."""
     out = torch.empty(view.shape, dtype=view.dtype, device=view.device)
-    copy_bytes_into(as_u8(out), as_u8(view))
+    copy_bytes_into(as_u8(out), as_u8(view), tr)
     return out
 
 
@@ -159,8 +161,11 @@ def _make_bufs(comm: Communicator, sched: Schedule, resident: bool,
     on the input's device."""
     if resident:
         bufs, release = comm._lease_round_bufs(sched.slot_sizes)
-        return _ResidentBufs(bufs, release, device)
-    return _HeapBufs(sched.slot_sizes, device)
+        out = _ResidentBufs(bufs, release, device)
+    else:
+        out = _HeapBufs(sched.slot_sizes, device)
+    out.tr = comm.tracer
+    return out
 
 
 def _launch(comm: Communicator, sched: Schedule, bufs, dtype, op,
@@ -197,14 +202,14 @@ def icoll_allreduce(comm: Communicator, arr, op=torch.add,
     if algo == "rd":
         sched = compile_schedule(comm, "allreduce_rd", nb,
                                  arr.element_size(), chunk_bytes=cb)
-        fin = (lambda b: take(b.ndview(sched.result, dtype))
+        fin = (lambda b: take(b.ndview(sched.result, dtype), b.tr)
                .reshape(shape))
     else:
         sched = compile_schedule(comm, "allreduce_ring", nb,
                                  arr.element_size(), chunk_bytes=cb)
         # fused RS+AG: slot 0 finishes in CHUNK order — truncate the
         # zero padding and reshape, no reorder pass
-        fin = (lambda b: take(b.ndview(sched.result, dtype)[:count])
+        fin = (lambda b: take(b.ndview(sched.result, dtype)[:count], b.tr)
                .reshape(shape))
     bufs = _make_bufs(comm, sched, resident, arr.device)
     bufs.fill(0, arr, pad_to=sched.slot_sizes[0])
@@ -226,7 +231,7 @@ def icoll_allreduce_hier(comm: Communicator, arr, op=torch.add,
     sched = compile_schedule(comm, "allreduce_hier", nb,
                              arr.element_size(), group=group,
                              chunk_bytes=cb)
-    fin = (lambda b: take(b.ndview(sched.result, dtype)[:count])
+    fin = (lambda b: take(b.ndview(sched.result, dtype)[:count], b.tr)
            .reshape(shape))
     bufs = _make_bufs(comm, sched, resident, arr.device)
     bufs.fill(0, arr, pad_to=sched.slot_sizes[0])
@@ -246,7 +251,7 @@ def icoll_reduce_scatter(comm: Communicator, arr, op=torch.add,
                                  comm, chunk_bytes, nb))
     bufs = _make_bufs(comm, sched, resident, arr.device)
     bufs.fill(0, arr, pad_to=sched.slot_sizes[0])
-    fin = lambda b: take(b.ndview(sched.result, dtype))  # noqa: E731
+    fin = lambda b: take(b.ndview(sched.result, dtype), b.tr)  # noqa: E731
     return _launch(comm, sched, bufs, dtype, op, fin)
 
 
@@ -269,10 +274,10 @@ def icoll_allgather(comm: Communicator, shard,
         per = shard.numel()
 
         def fin(b):
-            work = take(b.ndview(sched.result, dtype)).reshape(n, per)
+            work = take(b.ndview(sched.result, dtype), b.tr).reshape(n, per)
             return bruck_to_rank_order(work, rank, n)
     else:
-        fin = lambda b: take(b.ndview(sched.result, dtype))  # noqa: E731
+        fin = lambda b: take(b.ndview(sched.result, dtype), b.tr)  # noqa: E731
     return _launch(comm, sched, bufs, dtype, None, fin)
 
 
@@ -314,7 +319,8 @@ def icoll_bcast_known(comm: Communicator, arr: torch.Tensor,
         def fin(b):
             if not is_root:
                 copy_bytes_into(as_u8(u8),
-                                as_u8(b.ndview(sched.result, torch.uint8)))
+                                as_u8(b.ndview(sched.result, torch.uint8)),
+                                b.tr)
             return arr
     else:
         bufs = _HeapBufs({})             # slot 0 IS the user tensor
@@ -334,7 +340,7 @@ def icoll_reduce(comm: Communicator, arr, op=torch.add,
     bufs = _make_bufs(comm, sched, resident, arr.device)
     bufs.fill(0, arr)
     if comm.rank == root:
-        fin = (lambda b: take(b.ndview(sched.result, dtype))
+        fin = (lambda b: take(b.ndview(sched.result, dtype), b.tr)
                .reshape(shape))
     else:
         fin = lambda b: None             # noqa: E731
@@ -462,7 +468,7 @@ def alltoall(comm: Communicator, blocks: list) -> list[torch.Tensor]:
         raise ValueError(f"alltoall needs {n} blocks, got {len(blocks)}")
     blocks = [as_tensor(b) for b in blocks]
     out: list = [None] * n
-    out[r] = take(blocks[r])
+    out[r] = take(blocks[r], comm.tracer)
     reqs = []
     for off in range(1, n):
         dst = (r + off) % n

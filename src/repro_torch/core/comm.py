@@ -51,6 +51,7 @@ are in ``core/rma.py``.
 """
 from __future__ import annotations
 
+import functools
 import time
 import warnings
 from typing import Any, Optional
@@ -70,9 +71,60 @@ from repro_torch.core.pt2pt import (ANY_TAG, DEFAULT_MB_SLOTS, Communicator,
                               PoolBuffer, PoolView, Request, _RNDV_CTRL)
 from repro_torch.core.ringqueue import DEFAULT_CELL_SIZE
 from repro_torch.core.sched import compile_schedule
+from repro_torch.core.trace import (SP_ALLGATHER, SP_ALLREDUCE, SP_ALLTOALL,
+                                    SP_BARRIER, SP_BCAST, SP_IALLGATHER,
+                                    SP_IALLREDUCE, SP_IBARRIER, SP_IBCAST,
+                                    SP_IREDUCE_SCATTER, SP_REDUCE,
+                                    SP_REDUCE_SCATTER)
 
 _T = 0x7F000000          # collectives tag space (shared with collectives.py)
 _NAME_BUDGET = 24        # derived comm names are hashed beyond this length
+
+
+def _payload_bytes(args: tuple) -> int:
+    """Bytes of a collective call's first argument (a tensor, an array,
+    a list of them, or None)."""
+    x = args[0] if args else None
+    if isinstance(x, (list, tuple)):
+        return sum(_payload_bytes((b,)) for b in x)
+    if isinstance(x, torch.Tensor):
+        return x.numel() * x.element_size()
+    return int(getattr(x, "nbytes", 0))
+
+
+def _traced(name: int, blocking: bool = True):
+    """A collective method that, while the tracer records, is a span:
+    ``name``, the communicator's name and the call's number on it (the
+    id its members share), the payload's bytes; from entry to the
+    result's return (a non-blocking call's span is its request's until
+    ``wait`` returns). A call made inside another of the same
+    communicator's is part of it. Off, it costs the wrapper's call and
+    one check."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(self, *a, **k):
+            tr = self.tracer
+            if tr.enabled and not self._in_coll:
+                sid = self._tsid
+                sp = tr.push_span(name, sid, tr.call_seq(sid),
+                                  _payload_bytes(a))
+                self._in_coll = True
+                try:
+                    out = fn(self, *a, **k)
+                except BaseException:
+                    tr.pop_span(sp)
+                    raise
+                finally:
+                    self._in_coll = False
+                if blocking:
+                    tr.pop_span(sp)
+                else:
+                    tr.leave_span(sp)
+                    out._sp = sp
+                return out
+            return fn(self, *a, **k)
+        return call
+    return wrap
 
 
 def _derived_name(parent: str, suffix: str) -> str:
@@ -1101,15 +1153,18 @@ class Comm(Communicator):
     # method collectives: blocking = i*(...).wait() over the SAME
     # compiled schedules (core/sched.py) the non-blocking forms use
     # ------------------------------------------------------------------
+    @_traced(SP_BARRIER)
     def barrier(self) -> None:          # inherited seq-number barrier;
         super().barrier()               # restated here as part of the API
 
+    @_traced(SP_IBARRIER, blocking=False)
     def ibarrier(self) -> CollRequest:
         """Non-blocking dissemination barrier (zero-byte message
         rounds through the schedule engine — the seq-number barrier
         cannot be tested incrementally)."""
         return _coll.icoll_barrier(self)
 
+    @_traced(SP_BCAST)
     def bcast(self, arr, root: int = 0) -> torch.Tensor:
         """Binomial-tree broadcast; non-root ranks pass ``arr=None``
         (shape/dtype travel in a fixed-size metadata round). Large
@@ -1118,6 +1173,7 @@ class Comm(Communicator):
         return _coll._bcast_impl(self, arr, root,
                                  use_resident=self._use_resident)
 
+    @_traced(SP_IBCAST, blocking=False)
     def ibcast(self, arr: torch.Tensor, root: int = 0,
                chunk_bytes=None) -> CollRequest:
         """Non-blocking broadcast; ``arr`` must be a contiguous
@@ -1132,6 +1188,7 @@ class Comm(Communicator):
             resident=self._use_resident(_coll.nbytes(arr)),
             chunk_bytes=chunk_bytes)
 
+    @_traced(SP_REDUCE)
     def reduce(self, arr, op=torch.add, root: int = 0
                ) -> torch.Tensor | None:
         arr = _coll.as_tensor(arr)
@@ -1139,6 +1196,7 @@ class Comm(Communicator):
             self, arr, op, root,
             resident=self._use_resident(_coll.nbytes(arr))).wait()
 
+    @_traced(SP_ALLREDUCE)
     def allreduce(self, arr, op=torch.add, algo: str = "auto",
                   group_size: int | None = None,
                   chunk_bytes=None) -> torch.Tensor:
@@ -1168,6 +1226,7 @@ class Comm(Communicator):
         return self.iallreduce(arr, op, algo,
                                chunk_bytes=chunk_bytes).wait()
 
+    @_traced(SP_IALLREDUCE, blocking=False)
     def iallreduce(self, arr, op=torch.add, algo: str = "auto",
                    chunk_bytes=None) -> CollRequest:
         """Non-blocking allreduce: returns a ``CollRequest`` whose
@@ -1196,6 +1255,7 @@ class Comm(Communicator):
             resident=self._use_resident(_coll.nbytes(arr)),
             chunk_bytes=chunk_bytes)
 
+    @_traced(SP_IALLREDUCE, blocking=False)
     def ihier_allreduce(self, arr, op=torch.add,
                         group_size: int | None = None,
                         chunk_bytes=None) -> CollRequest:
@@ -1221,7 +1281,7 @@ class Comm(Communicator):
                     f"hier group_size {group_size} needs 2 <= g < n, "
                     f"g | n and a power-of-two group count (n="
                     f"{self.size}); falling back to the single-level "
-                    f"fused ring", UserWarning, stacklevel=2)
+                    f"fused ring", UserWarning, stacklevel=3)
             return _coll.icoll_allreduce(
                 self, arr, op, "ring",
                 resident=self._use_resident(_coll.nbytes(arr)),
@@ -1231,6 +1291,7 @@ class Comm(Communicator):
             resident=self._use_resident(_coll.nbytes(arr)),
             chunk_bytes=chunk_bytes)
 
+    @_traced(SP_REDUCE_SCATTER)
     def reduce_scatter(self, arr, op=torch.add,
                        chunk_bytes=None) -> torch.Tensor:
         """Ring reduce-scatter; returns this rank's reduced shard (chunk
@@ -1251,6 +1312,7 @@ class Comm(Communicator):
                                  chunk_bytes=chunk_bytes).wait()
             for a in range(0, per, cols)])
 
+    @_traced(SP_IREDUCE_SCATTER, blocking=False)
     def ireduce_scatter(self, arr, op=torch.add,
                         chunk_bytes=None) -> CollRequest:
         """Non-blocking ring reduce-scatter."""
@@ -1259,6 +1321,7 @@ class Comm(Communicator):
             self, arr, op, resident=self._use_resident(_coll.nbytes(arr)),
             chunk_bytes=chunk_bytes)
 
+    @_traced(SP_ALLGATHER)
     def allgather(self, shard, algo: str = "auto",
                   chunk_bytes=None) -> torch.Tensor:
         """All-gather; returns the flat concatenation in rank order.
@@ -1280,6 +1343,7 @@ class Comm(Communicator):
             out[:, a:a + cols] = got.reshape(n, -1)
         return out.reshape(-1)
 
+    @_traced(SP_IALLGATHER, blocking=False)
     def iallgather(self, shard, algo: str = "auto",
                    chunk_bytes=None) -> CollRequest:
         """Non-blocking all-gather; ``wait()`` returns the flat
@@ -1292,6 +1356,7 @@ class Comm(Communicator):
             resident=self._use_resident(_coll.nbytes(shard) * self.size),
             chunk_bytes=chunk_bytes)
 
+    @_traced(SP_ALLTOALL)
     def alltoall(self, blocks: list) -> list[torch.Tensor]:
         """Pairwise exchange; ``blocks[i]`` goes to rank i. Resident
         path: one persistent round-buffer lane per peer, so all n-1
@@ -1309,7 +1374,7 @@ class Comm(Communicator):
         if not (same and self._use_resident(total)):
             return _coll.alltoall(self, blocks)
         out: list = [None] * n
-        out[r] = _coll.take(blocks[r])
+        out[r] = _coll.take(blocks[r], self.tracer)
         reqs = []
         for off in range(1, n):
             dst = (r + off) % n
@@ -1321,7 +1386,7 @@ class Comm(Communicator):
             lane = (self.arena.pool.device_view(  # lint: raw-ok (own buffer)
                 pb.offset, len(src)) if is_device(src)
                 else pb.view()[:len(src)])
-            copy_bytes_into(lane, src)
+            copy_bytes_into(lane, src, self.tracer)
             reqs.append(self.isend(dst, pb.slice(0, len(src)),
                                    tag=_T + 1024 + off, _internal=True))
         for off in range(1, n):

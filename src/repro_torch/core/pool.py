@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import ctypes
 import threading
+import time
 import warnings
 from dataclasses import dataclass
 from multiprocessing import shared_memory
@@ -43,6 +44,7 @@ from multiprocessing import shared_memory
 import numpy as np
 import torch
 
+from repro_torch.core.trace import NULL_TRACER, SP_COPY, SP_SYNC
 from repro_torch.kernels.cellcopy import ops as _cc
 
 
@@ -96,7 +98,22 @@ def _host_tensor(mv: memoryview) -> torch.Tensor:
         return torch.frombuffer(mv, dtype=torch.uint8)
 
 
-def copy_bytes_into(dst, src) -> None:
+def device_sync(tr, cp: int = -1) -> None:
+    """Wait for the current stream, as every device copy of the core does
+    before a control word publishes its bytes. While ``tr`` records, the
+    wait is a ``pool.sync`` span under the copy's span ``cp`` (under
+    ``tr.cur`` where -1), counted in ``tr.sync_calls`` / ``sync_ns``, and
+    it ends ``cp``."""
+    if tr.enabled:
+        t0 = time.monotonic_ns()
+        sp = tr.open_child(SP_SYNC, cp if cp >= 0 else tr.cur, t=t0)
+        torch.cuda.current_stream().synchronize()
+        tr.close_span(cp, tr.synced(sp, t0))
+    else:
+        torch.cuda.current_stream().synchronize()
+
+
+def copy_bytes_into(dst, src, tr=NULL_TRACER) -> None:
     """``dst[:] = src`` for two ``as_u8`` views of equal length.
 
     host <- host     memoryview assignment
@@ -105,6 +122,9 @@ def copy_bytes_into(dst, src) -> None:
     device <- host   host bytes (parked or salvaged payloads) copied
                      host-to-device
     host <- device   device bytes copied device-to-host
+
+    ``tr``: the tracer of the communicator the copy serves; while it
+    records, a kernel copy is a ``pool.copy`` span under ``tr.cur``.
     """
     n = len(src)
     if len(dst) != n:
@@ -117,9 +137,12 @@ def copy_bytes_into(dst, src) -> None:
     elif dd and sd:
         if not (dst.is_cuda and src.is_cuda):
             raise ValueError("device copies run on CUDA tensors")
+        cp = -1
+        if tr.enabled:
+            cp = tr.open_child(SP_COPY, tr.cur, n)
         _cc.copy_bytes(dst.data_ptr(), src.data_ptr(), n,
                        _cc.DEFAULT_CELL_BYTES, None)
-        torch.cuda.current_stream().synchronize()
+        device_sync(tr, cp)
     elif dd:
         dst.copy_(_host_tensor(src))
     else:

@@ -46,19 +46,17 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
-from repro_torch.core.pool import as_u8, copy_bytes_into, is_device
+from repro_torch.core.pool import (as_u8, copy_bytes_into, device_sync,
+                                   is_device)
 from repro_torch.core.sched import (BufRef, CopyOp, GetOp, PutOp, RecvOp,
                               ReduceOp, Schedule, SendOp)
 from repro_torch.core.trace import (EV_SCHED_ABORT, EV_SCHED_BEGIN,
                               EV_SCHED_DONE, EV_SCHED_END,
-                              EV_SCHED_ISSUE, EV_TICK, Tracer)
+                              EV_SCHED_ISSUE, EV_TICK, NULL_TRACER,
+                              SP_STAGER_FREE, SP_WAITALL)
 
 __all__ = ["ProgressEngine", "CollRequest", "waitall", "waitany",
            "testall"]
-
-# executions driven by a comm that predates the tracer (tests building
-# _SchedExec by hand) fall back to this always-disabled recorder
-_NULL_TRACER = Tracer(capacity=1, enabled=False)
 
 # reduce ops given as numpy ufuncs run as their torch counterparts
 _NP_TO_TORCH = {np.add: torch.add, np.maximum: torch.maximum,
@@ -71,8 +69,8 @@ def torch_op(op):
     return _NP_TO_TORCH.get(op, op)
 
 
-def _copy(dst: torch.Tensor, src: torch.Tensor) -> None:
-    copy_bytes_into(as_u8(dst), as_u8(src))
+def _copy(dst: torch.Tensor, src: torch.Tensor, tr=NULL_TRACER) -> None:
+    copy_bytes_into(as_u8(dst), as_u8(src), tr)
 
 
 class ProgressEngine:
@@ -107,7 +105,10 @@ class ProgressEngine:
         self._in_tick = True
         tr = self.comm.tracer
         t0 = 0
+        up = -1
         if tr.enabled:
+            # the sweep turns each request under its own span
+            up = tr.cur
             # record only ticks with work in flight — idle spin turns
             # would evict every interesting record from the ring
             if (self.colls or self.stagers
@@ -121,6 +122,8 @@ class ProgressEngine:
                 self._reclaim_stagers()
             if self.colls:
                 for ex in list(self.colls):
+                    if tr.enabled:
+                        tr.cur = ex._sp
                     ex.advance()
                     if ex.finished:
                         try:
@@ -129,13 +132,18 @@ class ProgressEngine:
                             pass
         finally:
             self._in_tick = False
-            if tr.enabled and t0:
-                tr.emit(EV_TICK, time.monotonic_ns() - t0)
+            if tr.enabled:
+                tr.cur = up
+                if t0:
+                    tr.emit(EV_TICK, time.monotonic_ns() - t0)
 
     def _tick_sends(self) -> None:
+        tr = self.comm.tracer
         for fifo in list(self.send_fifo.values()):
             while fifo:
                 head = fifo[0]
+                if tr.enabled:
+                    tr.cur = head._cur
                 try:
                     next(head._gen)
                     break                    # blocked on queue space
@@ -152,6 +160,7 @@ class ProgressEngine:
                     raise
 
     def _tick_recvs(self) -> None:
+        tr = self.comm.tracer
         for src, fifo in list(self.recv_fifo.items()):
             while fifo and (fifo[0].done or fifo[0]._error is not None):
                 fifo.popleft()
@@ -170,6 +179,8 @@ class ProgressEngine:
             for req in list(fifo) if parked else [fifo[0]]:
                 if req.done or req._error is not None:
                     continue
+                if tr.enabled:
+                    tr.cur = req._cur
                 try:
                     next(req._gen)
                 except StopIteration:
@@ -191,10 +202,16 @@ class ProgressEngine:
 
     def _reclaim_stagers(self) -> None:
         v = self.comm.arena.view
+        tr = self.comm.tracer
         still = []
         for h in self.stagers:
             if v.nt_load_u8(h.offset):       # receiver ack'd the drain
+                fp = -1
+                if tr.enabled:
+                    fp = tr.open_child(SP_STAGER_FREE, tr.ack_seen(h.offset))
                 self.comm.arena.destroy(h)
+                if tr.enabled:
+                    tr.close_span(fp)
             else:
                 still.append(h)
         self.stagers[:] = still
@@ -216,6 +233,7 @@ class _HeapBufs:
     round-buffer detour)."""
 
     resident = False
+    tr = NULL_TRACER                     # the comm's, for the copies
 
     def __init__(self, slot_sizes: dict[int, int], device="cpu"):
         self._slots: dict[int, torch.Tensor] = {
@@ -239,13 +257,13 @@ class _HeapBufs:
     def fill(self, slot: int, data: torch.Tensor, pad_to: int = 0) -> None:
         u8 = data.reshape(-1).view(torch.uint8)
         dst = self._slots[slot]
-        _copy(dst[:u8.numel()], u8)
+        _copy(dst[:u8.numel()], u8, self.tr)
         if pad_to > u8.numel():
             dst[u8.numel():pad_to] = 0
 
     def fill_at(self, slot: int, off: int, data: torch.Tensor) -> None:
         u8 = data.reshape(-1).view(torch.uint8)
-        _copy(self._slots[slot][off:off + u8.numel()], u8)
+        _copy(self._slots[slot][off:off + u8.numel()], u8, self.tr)
 
     def release(self) -> None:
         if self._owned:
@@ -271,6 +289,7 @@ class _ResidentBufs:
     fills, reduces and results go through the pool's device window."""
 
     resident = True
+    tr = NULL_TRACER                     # the comm's, for the copies
 
     def __init__(self, bufs: dict[int, Any],
                  release_cb: Optional[Callable] = None, device="cpu"):
@@ -291,14 +310,15 @@ class _ResidentBufs:
     def fill(self, slot: int, data: torch.Tensor, pad_to: int = 0) -> None:
         u8 = as_u8(data)
         n = len(u8)
-        copy_bytes_into(self._window(slot, 0, n, is_device(u8)), u8)
+        copy_bytes_into(self._window(slot, 0, n, is_device(u8)), u8,
+                        self.tr)
         if pad_to > n:
             self._bufs[slot].view()[n:pad_to] = b"\0" * (pad_to - n)
 
     def fill_at(self, slot: int, off: int, data: torch.Tensor) -> None:
         u8 = as_u8(data)
         copy_bytes_into(self._window(slot, off, len(u8), is_device(u8)),
-                        u8)
+                        u8, self.tr)
 
     def send_payload(self, ref: BufRef):
         return self._bufs[ref.slot].slice(ref.off, ref.nbytes)
@@ -382,11 +402,18 @@ class _SchedExec:
         # flight recorder: one exec id + interned kind per execution so
         # hot-path records carry ints only; a chunked schedule's nodes
         # then render as per-chunk lanes keyed (exec, node idx)
-        tr = getattr(comm, "tracer", _NULL_TRACER)
+        # a comm without a tracer (tests building _SchedExec by hand)
+        # records into the never-enabled one
+        tr = getattr(comm, "tracer", NULL_TRACER)
         self._tr = tr
+        bufs.tr = tr
         self._trace_exec = 0
         self._trace_kind = 0
+        # the span the execution's work runs under: the collective call
+        # that launched it
+        self._sp = -1
         if tr.enabled:
+            self._sp = tr.cur
             self._trace_exec = tr.next_exec_id()
             self._trace_kind = tr.intern(sched.kind)
             tr.emit(EV_SCHED_BEGIN, self._trace_exec, self._trace_kind,
@@ -519,11 +546,11 @@ class _SchedExec:
                     self.op(dst, src, out=dst)
                     if is_device(dst):
                         # the next send publishes these bytes from the pool
-                        torch.cuda.current_stream().synchronize()
+                        device_sync(tr)
                     self._node_done(idx)
                 elif isinstance(nd, CopyOp):
                     _copy(self.bufs.ndview(nd.dst, torch.uint8),
-                          self.bufs.ndview(nd.src, torch.uint8))
+                          self.bufs.ndview(nd.src, torch.uint8), tr)
                     self._node_done(idx)
                 elif isinstance(nd, PutOp):
                     self.win._exec_put(nd.target, self.win_disp + nd.disp,
@@ -558,6 +585,7 @@ class CollRequest:
     Pass ``timeout=None`` to wait forever."""
 
     kind = "coll"
+    _sp = -1          # a traced non-blocking call's span, open till wait
 
     def __init__(self, comm, ex: _SchedExec):
         self._comm = comm
@@ -584,22 +612,32 @@ class CollRequest:
     def test(self) -> bool:
         if self._ex.error is not None:
             raise self._ex.error
-        if self._ex.finished:
-            return True
-        self._comm._progress()
-        if self._ex.error is not None:
-            raise self._ex.error
-        return self._ex.finished
+        if not self._ex.finished:
+            self._comm._progress()
+            if self._ex.error is not None:
+                raise self._ex.error
+            if not self._ex.finished:
+                return False
+        tr = self._ex._tr
+        if tr.enabled and self._sp >= 0:
+            tr.close_span(self._sp)      # the result is the caller's
+            self._sp = -1
+        return True
 
     def wait(self, timeout=_DEFAULT_TIMEOUT):
         if timeout is _DEFAULT_TIMEOUT:
             timeout = self.default_timeout
         t0 = time.monotonic()
+        sp, n = self._sp, 0
         while not self.test():
             if timeout is not None and time.monotonic() - t0 > timeout:
                 raise TimeoutError(
                     f"collective {self._ex.sched.kind} timed out")
             time.sleep(0)
+            n += 1
+        tr = self._ex._tr
+        if tr.enabled:
+            tr.add_waits(sp, n, n + 1)
         return self._ex.result
 
 
@@ -617,6 +655,15 @@ def _tick_engines(reqs: list) -> None:
         if eng is not None and all(eng is not e for e in seen):
             seen.append(eng)
             eng.tick()
+
+
+def _tracer_of(reqs: list):
+    """The tracer of the first request's communicator."""
+    for r in reqs:
+        c = getattr(r, "_comm", None)
+        if c is not None:
+            return getattr(c, "tracer", NULL_TRACER)
+    return NULL_TRACER
 
 
 def _req_done(r) -> bool:
@@ -643,14 +690,25 @@ def waitall(reqs: list, timeout: float | None = 60.0) -> None:
     no sweep re-pumps the engine per request."""
     t0 = time.monotonic()
     pending = list(reqs)
-    while pending:
-        _tick_engines(pending)
-        pending = [r for r in pending if not _req_done(r)]
-        if pending and timeout is not None \
-                and time.monotonic() - t0 > timeout:
-            raise TimeoutError(f"waitall: {len(pending)} pending")
-        if pending:
-            time.sleep(0)
+    tr = _tracer_of(pending)
+    sp = -1
+    if tr.enabled:
+        sp = tr.push_span(SP_WAITALL)
+    n = 0
+    try:
+        while pending:
+            _tick_engines(pending)
+            pending = [r for r in pending if not _req_done(r)]
+            if pending and timeout is not None \
+                    and time.monotonic() - t0 > timeout:
+                raise TimeoutError(f"waitall: {len(pending)} pending")
+            if pending:
+                time.sleep(0)
+                n += 1
+    finally:
+        if tr.enabled:
+            tr.add_waits(sp, n, n + 1)
+            tr.pop_span(sp)
 
 
 def waitany(reqs: list, timeout: float | None = 60.0) -> tuple[int, Any]:

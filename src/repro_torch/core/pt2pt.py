@@ -103,7 +103,10 @@ from repro_torch.core.sync import SeqBarrier
 from repro_torch.core.trace import (EV_MB_CLAIM, EV_MB_CONSUME, EV_MB_POST,
                               EV_MB_PROMOTE, EV_MB_RETRACT, EV_MB_SPILL,
                               EV_PT2PT_EAGER, EV_PT2PT_POSTED,
-                              EV_PT2PT_STAGED, as_tracer)
+                              EV_PT2PT_STAGED, NULL_TRACER, PATH_EAGER,
+                              PATH_POSTED, PATH_SELF, PATH_STAGED, SP_ACK,
+                              SP_ACK_SEEN, SP_QUEUE_WAIT, SP_RECV, SP_SEND,
+                              SP_STAGER, SP_WAIT, as_tracer)
 
 ANY_TAG = -1
 
@@ -370,6 +373,12 @@ class Request:
     # executions hang a node-retirement hook here so a finishing pt2pt
     # request immediately readies its dependents (core/progress.py)
     _on_done: Any = field(default=None, repr=False)
+    # tracing (core/trace.py): the request's span (pt2pt.send or
+    # pt2pt.recv; -1 untraced) and the span its work runs under (a
+    # receive's deliver span once its message is dequeued), which the
+    # progress engine makes the tracer's ``cur`` while it turns it
+    _span: int = field(default=-1, repr=False)
+    _cur: int = field(default=-1, repr=False)
 
     def _finish(self) -> None:
         """Mark complete exactly once and fire the completion callback."""
@@ -424,12 +433,17 @@ class Request:
         # never advances its own outstanding send), and a synchronous
         # send waited before a posted receive needs that receive matched
         # passively (MPI posted-receive semantics)
+        tr = NULL_TRACER
         if self._comm is not None:
+            tr = self._comm.tracer
             self._comm._progress()
             if self.done:                # completed by the engine
                 return True
             if self._error is not None:
                 raise self._error
+        up = -1
+        if tr.enabled:
+            up, tr.cur = tr.cur, self._cur
         try:
             next(self._gen)
         except StopIteration:
@@ -438,6 +452,9 @@ class Request:
         except BaseException:
             self._unpost()               # keep the FIFO draining
             raise
+        finally:
+            if tr.enabled:
+                tr.cur = up
         return self.done
 
     def _unpost(self) -> None:
@@ -449,10 +466,15 @@ class Request:
 
     def wait(self, timeout: float | None = 30.0):
         t0 = time.monotonic()
+        n = 0
         while not self.test():
             if timeout is not None and time.monotonic() - t0 > timeout:
                 raise TimeoutError(f"{self.kind} request timed out")
             time.sleep(0)
+            n += 1
+        tr = self._comm.tracer if self._comm is not None else NULL_TRACER
+        if tr.enabled:
+            tr.add_waits(self._span, n, n + 1)
         return self.data
 
 
@@ -482,6 +504,12 @@ class Communicator:
         # path checks ``self.tracer.enabled`` and nothing else. Must
         # exist before the engine and the init barrier below run.
         self.tracer = as_tracer(trace, rank)
+        # the comm's name as the tracer knows it (its spans' ``comm``),
+        # and whether a traced collective call of this comm is running
+        self._tsid = self.tracer.intern(name)
+        self._in_coll = False
+        if arena.view.tracer is NULL_TRACER:
+            arena.view.tracer = self.tracer
         # protocol switch: payloads <= threshold go through queue cells
         # (eager), larger ones through a pool staging object (rendezvous)
         self.eager_threshold = (cell_size if eager_threshold is None
@@ -720,7 +748,7 @@ class Communicator:
         if is_device(d) and d.device == self.device:
             return d
         out = self._new_payload(len(d))
-        copy_bytes_into(as_u8(out), as_u8(d))
+        copy_bytes_into(as_u8(out), as_u8(d), self.tracer)
         return out
 
     def _next_pid(self, src: int) -> int:
@@ -1068,12 +1096,8 @@ class Communicator:
              _internal: bool = False) -> None:
         """``data``: any buffer-protocol object, a CPU or CUDA tensor,
         or a PoolBuffer/PoolView."""
-        req = self.isend(dest, data, tag, _internal=_internal)
-        t0 = time.monotonic()
-        while not req.test():           # test() runs the progress sweep
-            if timeout is not None and time.monotonic() - t0 > timeout:
-                raise TimeoutError(f"send(dest={dest}, tag={tag})")
-            time.sleep(0)
+        self._block(self.isend(dest, data, tag, _internal=_internal),
+                    timeout, "send(dest", dest, tag)
 
     def recv(self, src: int, tag: int = ANY_TAG,
              timeout: float | None = 30.0, *,
@@ -1081,11 +1105,7 @@ class Communicator:
         """Receive the next matching message as a uint8 tensor on this
         communicator's device; returns (payload, tag)."""
         req = self.irecv(src, tag, _internal=_internal)
-        t0 = time.monotonic()
-        while not req.test():           # test() runs the progress sweep
-            if timeout is not None and time.monotonic() - t0 > timeout:
-                raise TimeoutError(f"recv(src={src}, tag={tag})")
-            time.sleep(0)
+        self._block(req, timeout, "recv(src", src, tag)
         return req.data, req.tag
 
     def recv_into(self, src: int, buf, tag: int = ANY_TAG,
@@ -1097,12 +1117,25 @@ class Communicator:
         ValueError raised (MPI truncation semantics) — the communicator
         stays usable."""
         req = self.irecv_into(src, buf, tag, _internal=_internal)
-        t0 = time.monotonic()
-        while not req.test():           # test() runs the progress sweep
-            if timeout is not None and time.monotonic() - t0 > timeout:
-                raise TimeoutError(f"recv_into(src={src}, tag={tag})")
-            time.sleep(0)
+        self._block(req, timeout, "recv_into(src", src, tag)
         return req.nbytes, req.tag
+
+    def _block(self, req: Request, timeout: float | None, call: str,
+               peer: int, tag: int) -> None:
+        """The blocking calls' loop: test ``req`` (each test runs one
+        progress sweep) and yield until it completes. While the tracer
+        records, the yields and sweeps are counted on the request's
+        span."""
+        t0 = time.monotonic()
+        n = 0
+        while not req.test():
+            if timeout is not None and time.monotonic() - t0 > timeout:
+                raise TimeoutError(f"{call}={peer}, tag={tag})")
+            time.sleep(0)
+            n += 1
+        tr = self.tracer
+        if tr.enabled:
+            tr.add_waits(req._span, n, n + 1)
 
     # numpy convenience — ndarray views end to end, no tobytes/frombuffer
     def send_array(self, dest: int, arr: np.ndarray, tag: int = 0) -> None:
@@ -1137,6 +1170,8 @@ class Communicator:
         awaiting promotion into a depth-capped strip), so waiting keeps
         the one-copy path deterministic; the deadline preserves
         liveness if the guarantee is ever violated."""
+        tr = self.tracer
+        t_in = time.monotonic_ns() if tr.enabled else 0   # the entry
         if int(tag) < 0:
             # ANY_TAG is a receive-side wildcard; a negative wire tag
             # would never match (fail fast on every protocol path alike)
@@ -1166,6 +1201,11 @@ class Communicator:
         mv = None if pview is not None else as_u8(data)
         nbytes = pview.nbytes if pview is not None else len(mv)
         req.nbytes = nbytes
+        sp = -1
+        if tr.enabled:
+            sp = tr.open_span(SP_SEND, tr.cur, self._tsid, self.rank, dest,
+                              tr.send_seq(self._tsid, dest), nbytes, t=t_in)
+        req._span = req._cur = sp
 
         def gen():  # mb-writer: sender
             if dest == self.rank:
@@ -1176,23 +1216,25 @@ class Communicator:
                 elif is_device(mv):
                     # a device payload stays on the card: clone it there
                     payload = torch.empty_like(mv)
-                    copy_bytes_into(payload, mv)
+                    copy_bytes_into(payload, mv, tr)
                 else:
                     payload = mv.tobytes()
                 self._parked[self.rank].append((payload, tag, False))
+                if tr.enabled:
+                    tr.end_send(sp, PATH_SELF)
                 return
             q = self.mq.send_queue(dest)
             v = self.arena.view
             if pview is None and nbytes <= self.eager_threshold:
                 # ---- eager: memoryview slices through queue cells ----
                 self.eager_sends += 1
-                tr = self.tracer
                 if tr.enabled:
                     tr.emit(EV_PT2PT_EAGER, dest, nbytes, tag)
                 for parts, flags in q.plan_message(mv, tag):
-                    while not q.try_enqueue_parts(parts, flags):
-                        yield
+                    yield from self._enqueue(q, parts, flags, sp)
                 v.count_path("eager", nbytes)
+                if tr.enabled:
+                    tr.end_send(sp, PATH_EAGER)
                 return
             self.rndv_sends += 1
             # ---- posted rendezvous: the receiver advertised its
@@ -1227,7 +1269,6 @@ class Communicator:
                 v.nt_store_u64(eoff + _MB_CLAIM,
                                (pid << 2) | _CLAIM_COMMIT)
                 self.posted_sends += 1
-                tr = self.tracer
                 if tr.enabled:
                     tr.emit(EV_PT2PT_POSTED, dest, nbytes, tag)
                 # wire: [total u64 | tag u64 | slot u64 | post_id u64]
@@ -1235,16 +1276,16 @@ class Communicator:
                         + (int(tag) & _MB_ANY).to_bytes(8, "little")
                         + slot.to_bytes(8, "little")
                         + pid.to_bytes(8, "little"))
-                while not q.try_enqueue_parts(
-                        (desc,),
-                        FLAG_FIRST | FLAG_LAST | FLAG_RNDV | FLAG_POSTED):
-                    yield
+                yield from self._enqueue(
+                    q, (desc,),
+                    FLAG_FIRST | FLAG_LAST | FLAG_RNDV | FLAG_POSTED, sp)
+                if tr.enabled:
+                    tr.end_send(sp, PATH_POSTED)
                 if pview is not None:
                     # the payload left the source at the write above
                     pbuf._in_flight = False
                 return
             # ---- staged rendezvous: stage once, ship a descriptor ----
-            tr = self.tracer
             if tr.enabled:
                 tr.emit(EV_PT2PT_STAGED, dest, nbytes, tag)
             sync_done = None
@@ -1268,9 +1309,14 @@ class Communicator:
                 def sync_done():
                     pass
             else:
+                ap = -1
+                if tr.enabled:
+                    ap = tr.open_child(SP_STAGER, sp)
                 h = self.arena.create(
                     f"rv:{self.name}:{self.rank}:{dest}:{self._rndv_seq}",
                     _RNDV_CTRL + nbytes)
+                if tr.enabled:
+                    tr.close_span(ap)
                 self._rndv_seq += 1
                 ack_off = h.offset
                 data_off = h.offset + _RNDV_CTRL
@@ -1283,26 +1329,46 @@ class Communicator:
                     + (int(tag) & _MB_ANY).to_bytes(8, "little")
                     + ack_off.to_bytes(8, "little")
                     + data_off.to_bytes(8, "little"))
-            while not q.try_enqueue_parts(
-                    (desc,), FLAG_FIRST | FLAG_LAST | FLAG_RNDV):
-                yield
+            yield from self._enqueue(
+                q, (desc,), FLAG_FIRST | FLAG_LAST | FLAG_RNDV, sp)
+            if tr.enabled:
+                tr.end_send(sp, PATH_STAGED)
             if sync_done is not None:
                 # synchronous-mode: complete when the receiver drained
                 # the staging memory (it is then reusable)
                 while not v.nt_load_u8(ack_off):
                     yield
+                if tr.enabled:
+                    tr.mark(SP_ACK_SEEN, sp)
                 sync_done()
             else:
                 self._stagers.append(h)             # reclaimed on ack
+                if tr.enabled:
+                    tr.staged(h.offset, sp)
         req._gen = gen()
         req._comm = self
         self._send_fifo.setdefault(dest, deque()).append(req)
         self._progress()                         # start eagerly (in order)
         return req
 
+    def _enqueue(self, q, parts, flags: int, sp: int):
+        """Yield until ``parts`` (one cell's worth) enter the pair queue
+        ``q``; while the tracer records, a wait for a free cell is a
+        ``pt2pt.queue_full`` span under the send's span ``sp``."""
+        tr = self.tracer
+        qw = -1
+        while not q.try_enqueue_parts(parts, flags):
+            if tr.enabled and qw < 0:
+                qw = tr.open_child(SP_QUEUE_WAIT, sp)
+            yield
+        if tr.enabled and qw >= 0:
+            tr.close_span(qw)
+
     def irecv(self, src: int, tag: int = ANY_TAG, *,
               _internal: bool = False) -> Request:
-        return self._irecv_impl(src, tag, None, _internal=_internal)
+        t_in = time.monotonic_ns() if self.tracer.enabled else 0
+        return self._irecv_impl(src, tag, None, _internal=_internal,
+                                t_in=t_in)
 
     def irecv_into(self, src: int, buf, tag: int = ANY_TAG, *,
                    _internal: bool = False) -> Request:
@@ -1311,12 +1377,15 @@ class Communicator:
         user buffer). Pool-addressable destinations are PUBLISHED in the
         matchbox so a matching sender can deliver the payload with one
         copy and no receiver-side drain (posted rendezvous)."""
+        t_in = time.monotonic_ns() if self.tracer.enabled else 0
         return self._irecv_impl(src, tag, self._resolve_dest(buf),
-                                _internal=_internal)
+                                _internal=_internal, t_in=t_in)
 
     def _irecv_impl(self, src: int, tag: int,
                     dest: Optional[_RecvDest], *,
-                    _internal: bool = False) -> Request:
+                    _internal: bool = False, t_in: int = 0) -> Request:
+        """``t_in``: the post's time where the tracer records (the
+        receive's spans start there)."""
         if tag != ANY_TAG and int(tag) >= TAG_RESERVED_BASE \
                 and not _internal:
             # mirror of the isend fence: a user receive on a reserved
@@ -1327,6 +1396,14 @@ class Communicator:
         req = Request(kind="recv", tag=tag, src=src)
         dst = dest.mv if dest is not None else None
         cap = dest.capacity if dest is not None else 0
+        tr = self.tracer
+        rsp = wsp = -1
+        if tr.enabled:
+            rsp = tr.open_span(SP_RECV, tr.cur, self._tsid, src, self.rank,
+                               t=t_in)
+            wsp = tr.open_span(SP_WAIT, rsp, self._tsid, src, self.rank,
+                               t=t_in)
+        req._span = req._cur = rsp
 
         def deliver_bytes(d, t: int) -> None:
             """Parked / staged-pull / salvaged payload (host bytes or a
@@ -1336,7 +1413,7 @@ class Communicator:
                     raise ValueError(
                         f"recv_into: message of {len(d)}B exceeds "
                         f"buffer of {cap}B")
-                copy_bytes_into(dst[:len(d)], as_u8(d))
+                copy_bytes_into(dst[:len(d)], as_u8(d), tr)
                 self.arena.view.count_copy(len(d))
                 dest.flush(self.arena.view, len(d))
             else:
@@ -1410,6 +1487,11 @@ class Communicator:
                     total = int.from_bytes(payload[:8], "little")
                     t = int.from_bytes(payload[8:16], "little")
                     match = _tag_match(tag, t)
+                    if tr.enabled:
+                        dsp = tr.dequeued(rsp, wsp, self._tsid, src,
+                                          self.rank, total, match)
+                        if dsp >= 0:
+                            req._cur = tr.cur = dsp
                     v = self.arena.view
                     # an undersized dst is a truncation error (MPI_ERR_
                     # TRUNCATE): the message is still fully consumed (so
@@ -1453,6 +1535,8 @@ class Communicator:
                                 v.count_path("rndv_staged", total)
                             dest.flush(v, total)
                             v.nt_store_u8(ack_off, 1)    # ack the drain
+                            if tr.enabled:
+                                tr.mark(SP_ACK, req._cur)
                             req.nbytes, req.tag = total, t
                             return
                         if truncate:
@@ -1470,6 +1554,8 @@ class Communicator:
                             d = (bytes(v.read_acquire(data_off, total))
                                  if total else b"")
                         v.nt_store_u8(ack_off, 1)
+                        if tr.enabled and match:
+                            tr.mark(SP_ACK, req._cur)
                         if total:
                             v.count_path("rndv_staged", total)
                         if match:
@@ -1496,7 +1582,7 @@ class Communicator:
                     copy_bytes_into(sink[:k], scratch.device_view(
                         16, k)  # lint: raw-ok (private landing buffer)
                                     if is_device(sink) else
-                                    payload[16:16 + k])
+                                    payload[16:16 + k], tr)
                     v.count_copy(k)
                     req._draining = True     # mid-message: not cancellable
                     while k < total:
@@ -1526,6 +1612,8 @@ class Communicator:
                 # leaves that entry live (or spilled) — withdraw it
                 # before the user buffer changes owner
                 self._mb_withdraw(pend)
+                if tr.enabled:
+                    tr.recv_done(rsp, wsp, req._cur)
         req._gen = gen()
         req._comm = self        # wait()/test() must pump the send engine
         self._recv_fifo.setdefault(src, deque()).append(req)
@@ -1533,6 +1621,9 @@ class Communicator:
         # postable destination is published before control returns to
         # the caller (the matchbox contract: entries exist BEFORE the
         # sender's descriptor does)
+        up = -1
+        if tr.enabled:
+            up, tr.cur = tr.cur, rsp
         try:
             next(req._gen)
         except StopIteration:
@@ -1541,6 +1632,9 @@ class Communicator:
         except BaseException as e:
             req._error = e
             req._unpost()
+        finally:
+            if tr.enabled:
+                tr.cur = up
         return req
 
     def waitall(self, reqs: list, timeout: float | None = 30.0) -> None:

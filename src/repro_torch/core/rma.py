@@ -84,10 +84,7 @@ from repro_torch.core.trace import (EV_RMA_FENCE_BEGIN, EV_RMA_FENCE_END,
                                     EV_RMA_GET, EV_RMA_LOCK_ALL,
                                     EV_RMA_NOTIFY, EV_RMA_PUT,
                                     EV_RMA_UNLOCK_ALL, EV_RMA_WAIT_BEGIN,
-                                    EV_RMA_WAIT_END, Tracer)
-
-# windows built without a communicator (direct construction) trace here
-_NULL_TRACER = Tracer(capacity=1, enabled=False)
+                                    EV_RMA_WAIT_END, NULL_TRACER)
 
 
 def _u8_tensor(buf) -> torch.Tensor:
@@ -142,7 +139,9 @@ class Window:
         self.rank = rank
         self.win_size = win_size
         self._comm = comm
-        self._tr = getattr(comm, "tracer", None) or _NULL_TRACER
+        # windows built without a communicator (direct construction)
+        # trace into the never-enabled tracer
+        self._tr = getattr(comm, "tracer", None) or NULL_TRACER
         # where get_array results and local views live
         self.device = (torch.device("cpu") if comm is None
                        else comm.device)

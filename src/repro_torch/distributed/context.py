@@ -39,6 +39,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.comm import Comm
+from repro_torch.core.trace import NULL_TRACER
 
 AXES = ("pod", "data", "model")
 
@@ -129,6 +130,12 @@ class DistContext:
         rest = [self.coords[b] for b in axes if b not in dp]
         self.dp_comm: Optional[Comm] = comm.split(
             self._flat(rest, *dp), key=self.dp_index) if dp else None
+
+    @property
+    def tracer(self):
+        """The tracer of the communicator the mesh is built over, which
+        its sub-communicators share: the model code's spans go there."""
+        return getattr(self.comm, "tracer", NULL_TRACER)
 
     def with_batch_shardable(self, flag: bool) -> "DistContext":
         """This context with ``batch_shardable`` set to ``flag`` (no

@@ -39,6 +39,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import MambaConfig, ModelConfig, RWKVConfig
+from repro_torch.core.trace import (SP_MOE_COMBINE, SP_MOE_DISPATCH,
+                                    SP_MOE_EXPERTS)
 from repro_torch.kernels import route
 from repro_torch.kernels.flash_attention.ops import flash_attention_bshd
 from repro_torch.kernels.rwkv6.ops import wkv6_bshn
@@ -557,6 +559,11 @@ def moe_apply_ep(params: Params, cfg: ModelConfig, x, dist):
                          f"experts: {E} whole or {e_loc} a model rank")
     b, s, d = x.shape
     gtok = b * s
+    # host spans of the three phases, on the mesh's tracer while it records
+    tr = dist.tracer
+    sp = -1
+    if tr.enabled:
+        sp = tr.push_span(SP_MOE_DISPATCH)
     xg = dist.replicated_over_model(x).reshape(1, gtok, d)
     probs, top_p, top_e, onehot, pos = _route(
         xg, dist.replicated_over_model(params["router"]), cfg)
@@ -567,9 +574,17 @@ def moe_apply_ep(params: Params, cfg: ModelConfig, x, dist):
         1, gtok, K)
     vals = torch.where(keep, tok_ids, gtok).reshape(1, -1)
     dispatch = _dispatch(slot, vals, e_loc * C, gtok)
+    if tr.enabled:
+        tr.pop_span(sp)
+        sp = tr.push_span(SP_MOE_EXPERTS)
     expert_out = _experts(xg, dispatch, *ws, _dtype(cfg))
+    if tr.enabled:
+        tr.pop_span(sp)
+        sp = tr.push_span(SP_MOE_COMBINE)
     out = _combine(expert_out, dispatch, slot, vals, keep, top_p)
     y = dist.sum_over_model(out).reshape(b, s, d).to(_dtype(cfg))
+    if tr.enabled:
+        tr.pop_span(sp)
     return y, dist.once_over_model(_aux_loss(probs, onehot, cfg))
 
 

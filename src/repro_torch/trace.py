@@ -13,8 +13,11 @@ per-rank files into something a human can read:
 (https://ui.perfetto.dev) or chrome://tracing: one process lane per
 rank, engine ticks and schedule executions as duration slices (one
 sub-lane per schedule node, so chunked collectives render per-chunk),
-pt2pt/matchbox instants, RMA epochs as nested slices. ``summarize``
-prints a text top-N event table + latency-histogram percentiles.
+pt2pt/matchbox instants, RMA epochs as nested slices, and then the
+rank's spans (messages, copies, syncs, collective calls, serve steps)
+as slices in lanes of their own, on the epoch clock of the card's
+profiler traces. ``summarize`` prints a text top-N event table +
+latency-histogram percentiles.
 """
 from __future__ import annotations
 

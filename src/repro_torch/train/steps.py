@@ -21,6 +21,7 @@ from typing import Any, Optional
 import torch
 
 from repro_torch.configs.base import InputShape, ModelConfig
+from repro_torch.core.trace import NULL_TRACER, SP_DECODE, SP_PREFILL
 from repro_torch.distributed import sharding as shd
 from repro_torch.distributed.context import DistContext
 from repro_torch.distributed.sharding import P
@@ -254,12 +255,20 @@ def make_serve_prefill(cfg: ModelConfig, shape: InputShape,
     """``fn(params, batch)``: ``lm.prefill`` of the rank's rows of the
     global batch, without autograd; the rank's last-position logits."""
     d = make_dist(cfg, shape, dist)
+    tr = d.tracer if d is not None else NULL_TRACER
 
     @torch.no_grad()
     def serve_prefill(params, batch):
-        if d is not None:
-            batch = d.shard_batch(batch)
-        return lm.prefill(params, cfg, batch, dist=d)
+        sp = -1
+        if tr.enabled:
+            sp = tr.push_span(SP_PREFILL)
+        try:
+            if d is not None:
+                batch = d.shard_batch(batch)
+            return lm.prefill(params, cfg, batch, dist=d)
+        finally:
+            if tr.enabled:
+                tr.pop_span(sp)
 
     pspec = shd.param_pspecs(cfg, dist, serve=True)
     bspec = dict(shd.batch_pspecs(
@@ -280,13 +289,21 @@ def make_serve_decode(cfg: ModelConfig, shape: InputShape,
     logits, or its greedy tokens where ``decode_return == "token"`` and
     the vocab is split over ``model``; the state)."""
     d = make_dist(cfg, shape, dist)
+    tr = d.tracer if d is not None else NULL_TRACER
 
     @torch.no_grad()
     def serve_decode(params, state, batch, pos):
-        if d is not None:
-            batch = d.shard_batch(batch)
-            pos = d.shard_batch({"pos": pos})["pos"]
-        return lm.decode_step(params, cfg, state, batch, pos, dist=d)
+        sp = -1
+        if tr.enabled:
+            sp = tr.push_span(SP_DECODE)
+        try:
+            if d is not None:
+                batch = d.shard_batch(batch)
+                pos = d.shard_batch({"pos": pos})["pos"]
+            return lm.decode_step(params, cfg, state, batch, pos, dist=d)
+        finally:
+            if tr.enabled:
+                tr.pop_span(sp)
 
     pspec = shd.param_pspecs(cfg, dist, serve=True)
     sspec = shd.decode_state_pspecs(cfg, shape, dist)

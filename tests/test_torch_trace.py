@@ -6,6 +6,7 @@ exits 1 in both."""
 import json
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import pytest
@@ -15,6 +16,7 @@ torch = pytest.importorskip("torch")
 from repro import trace as ref_trace  # noqa: E402
 from repro_torch import trace  # noqa: E402
 from repro_torch.core import run_threads  # noqa: E402
+from repro_torch.core.trace import SPAN_TID_BASE  # noqa: E402
 
 SRC = str(Path(__file__).resolve().parent.parent / "src")
 
@@ -46,14 +48,53 @@ def dumps(tmp_path_factory):
 
 
 def test_merge_equals_the_reference(dumps, tmp_path, capsys):
+    """Every event the reference renders, rendered alike: the port's
+    merge less its span lanes is the reference's, byte for byte."""
     ours, theirs = tmp_path / "ours.json", tmp_path / "theirs.json"
     assert trace.main(["merge", *dumps, "-o", str(ours)]) == 0
     assert ref_trace.main(["merge", *dumps, "-o", str(theirs)]) == 0
-    assert ours.read_text() == theirs.read_text()
     evs = json.loads(ours.read_text())["traceEvents"]
+    rest = [e for e in evs if e["tid"] < SPAN_TID_BASE]
+    assert len(rest) < len(evs)                  # the span lanes are there
+    assert json.dumps({"traceEvents": rest, "displayTimeUnit": "ms"}) \
+        + "\n" == theirs.read_text()
     assert {e["pid"] for e in evs if e["ph"] != "M"} == {0, 1}
     out = capsys.readouterr().out
     assert "merged 2 rank dump(s)" in out
+
+
+def test_merge_renders_the_span_lanes(dumps, tmp_path):
+    """Each rank's spans are slices in lanes of their own, named, every
+    lane's slices nested, on the epoch clock of the dump."""
+    out = tmp_path / "ours.json"
+    assert trace.main(["merge", *dumps, "-o", str(out)]) == 0
+    evs = [e for e in json.loads(out.read_text())["traceEvents"]
+           if e["tid"] >= SPAN_TID_BASE]
+    for pid in (0, 1):
+        mine = [e for e in evs if e["pid"] == pid]
+        lanes = {e["tid"] for e in mine if e["ph"] == "M"}
+        assert lanes and {e["tid"] for e in mine} == lanes
+        names = {e["name"] for e in mine if e["ph"] == "X"}
+        assert {"pt2pt.send", "pt2pt.recv", "pt2pt.wait", "pt2pt.deliver",
+                "coll.allreduce", "coll.barrier"} <= names
+        for tid in lanes:
+            stack = []
+            for e in sorted((e for e in mine if e["tid"] == tid
+                             and e["ph"] == "X"),
+                            key=lambda e: (e["ts"], -e["dur"])):
+                # microseconds on the epoch clock carry ~0.25 us in a
+                # double: nested within that
+                while stack and stack[-1] <= e["ts"] + 0.5:
+                    stack.pop()
+                assert not stack or e["ts"] + e["dur"] <= stack[-1] + 0.5
+                stack.append(e["ts"] + e["dur"])
+    dump = json.loads(Path(dumps[0]).read_text())
+    lo = min(s[1] for s in dump["spans"]) / 1000.0
+    hi = max(s[2] for s in dump["spans"]) / 1000.0
+    xs = [e for e in evs if e["pid"] == 0 and e["ph"] == "X"]
+    assert lo == min(e["ts"] for e in xs)
+    assert max(e["ts"] + e["dur"] for e in xs) == pytest.approx(hi)
+    assert abs(lo * 1000 - time.time_ns()) < 600e9      # epoch, not uptime
 
 
 @pytest.mark.parametrize("top", [3, 10])
