@@ -12,9 +12,12 @@ adds POSIX-SHM-like named objects without kernel support:
   (hash salted by level), so lookup is O(levels), parallelizable across
   levels, and there is no resizing and no probe chains — deleting a slot
   never breaks other keys' probes.
-* the heap is a bump allocator with a bounded first-fit free list;
-  every object is cacheline(64B)-aligned (paper §3.7: alignment makes the
-  flush protocol and non-temporal accesses exact).
+* the heap is a bump allocator with a bounded first-fit free list whose
+  frees coalesce: a freed block merges with the free blocks that touch
+  it, and one that then ends at the bump pointer lowers it, so the list
+  holds about one entry per hole between live objects; every object is
+  cacheline(64B)-aligned (paper §3.7: alignment makes the flush protocol
+  and non-temporal accesses exact).
 * creation/destruction are serialized by a Lamport BAKERY lock living in
   the pool itself — mutual exclusion with only per-rank single-writer
   slots, because CXL pooled memory provides no cross-host atomic RMW
@@ -265,6 +268,9 @@ class Arena:
     def _alloc(self, size: int) -> int:
         size = size + (-size) % CACHELINE
         fl = self._freelist()
+        tr = self.view.tracer
+        if tr.enabled:
+            tr.freelist_peak = max(tr.freelist_peak, len(fl))
         for i, (o, s) in enumerate(fl):
             if s >= size:                      # first fit
                 rest = s - size
@@ -282,12 +288,45 @@ class Arena:
         return cur
 
     def _free(self, offset: int, size: int) -> None:
+        """Give a block back, merged with the free blocks that end at its
+        start and start at its end. The list is unsorted and any rank
+        (a reference one too) may have appended to it, so it is scanned
+        whole; a merged block that ends at the bump pointer lowers it
+        and keeps no entry. Each entry taken out of the list is filled
+        by the last one."""
         size = size + (-size) % CACHELINE
         fl = self._freelist()
-        if len(fl) < self.freelist_cap:
+        seen = len(fl)
+        end = offset + size
+        lo = hi = -1
+        for i, (o, s) in enumerate(fl):
+            if o + s == offset:
+                lo = i
+            elif o == end:
+                hi = i
+        if lo >= 0:
+            offset, size = fl[lo][0], size + fl[lo][1]
+        if hi >= 0:
+            size += fl[hi][1]
+        for i in sorted((lo, hi), reverse=True):
+            if i >= 0:
+                last = fl.pop()
+                if i < len(fl):
+                    fl[i] = last
+        merged = lo >= 0 or hi >= 0
+        topped = offset + size == self.view.nt_load_u64(_H_HEAP_CUR)
+        if topped:
+            self.view.nt_store_u64(_H_HEAP_CUR, offset)
+        elif len(fl) < self.freelist_cap:
             fl.append((offset, size))
-            self._freelist_write(fl)
         # else: leak (bounded metadata — the paper's arena never frees at all)
+        if len(fl) != seen or merged:
+            self._freelist_write(fl)
+        tr = self.view.tracer
+        if tr.enabled:
+            tr.arena_frees += 1
+            tr.arena_merged += merged or topped
+            tr.freelist_peak = max(tr.freelist_peak, seen, len(fl))
 
     # ------------------------------------------------------------------
     # public API (paper Table 2)

@@ -355,6 +355,9 @@ class Tracer:
         self.cur = -1                   # innermost running span
         self.sync_calls = 0             # the core's stream syncs ...
         self.sync_ns = 0                # ... and the time inside them
+        self.arena_frees = 0            # the arena's frees ...
+        self.arena_merged = 0           # ... those that coalesced
+        self.freelist_peak = 0          # the longest free list seen
         self._seq_out: dict[int, int] = {}    # (comm, dst) -> next seq
         self._seq_in: dict[int, int] = {}     # (comm, src) -> next seq
         self._call_seq: dict[int, int] = {}   # comm -> next call seq
@@ -627,7 +630,10 @@ class Tracer:
     def span_counters(self) -> dict:
         return {"spans_kept": self._n_sp,
                 "spans_dropped": self.spans_dropped,
-                "sync_calls": self.sync_calls, "sync_ns": self.sync_ns}
+                "sync_calls": self.sync_calls, "sync_ns": self.sync_ns,
+                "arena_frees": self.arena_frees,
+                "arena_merged": self.arena_merged,
+                "freelist_peak": self.freelist_peak}
 
     def intern(self, s: str) -> int:
         """Map a string (schedule kind, lane label) to a small id so
@@ -674,6 +680,9 @@ class Tracer:
         self.cur = -1
         self.sync_calls = 0
         self.sync_ns = 0
+        self.arena_frees = 0
+        self.arena_merged = 0
+        self.freelist_peak = 0
         self._seq_out.clear()
         self._seq_in.clear()
         self._call_seq.clear()
