@@ -9,6 +9,7 @@ from repro_torch.configs.base import (  # noqa: F401
     MambaConfig,
     ModelConfig,
     MoEConfig,
+    PortConfig,
     RWKVConfig,
     SHAPES,
     shape_applicable,
@@ -27,13 +28,20 @@ _MODULES = {
     "musicgen-large": "repro_torch.configs.musicgen_large",
 }
 
+# models of the port alone (``PortConfig``s): the JAX package computes
+# none of them, so they stay out of ``ARCHS``, the ten it mirrors
+_PORT_MODULES = {
+    "jamba2-mini": "repro_torch.configs.jamba2_mini",
+}
+
 ARCHS = tuple(_MODULES)
 
 
 def get_config(arch_id: str) -> ModelConfig:
-    if arch_id not in _MODULES:
-        raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(_MODULES)}")
-    return importlib.import_module(_MODULES[arch_id]).CONFIG
+    mods = {**_MODULES, **_PORT_MODULES}
+    if arch_id not in mods:
+        raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(mods)}")
+    return importlib.import_module(mods[arch_id]).CONFIG
 
 
 def optimized(cfg: ModelConfig) -> ModelConfig:

@@ -109,6 +109,18 @@ class ModelConfig:
     vocab_parallel: bool = True   # shard_map vocab-parallel embed + CE
     kv_cache_dtype: str = "bfloat16"   # bfloat16 | int8 (quantized KV feature)
 
+    # The port's options beyond the JAX package's config. They are fields
+    # of ``PortConfig`` alone, so that ``dataclasses.asdict`` of every
+    # preset stays the JAX package's; on a ``ModelConfig`` they read
+    # today's behaviour.
+    attn_rope = True              # False: self-attention without positions
+    mamba_inner_norms = False     # RMSNorms on x_proj's dt, B and C splits
+    moe_renormalize = True        # False: the top-k softmax weights as
+    #                               they are, not divided by their sum
+    moe_held = 0                  # experts held here (0: all n_experts), a
+    moe_held_offset = 0           # contiguous block from this one; the
+    #                               router still routes over n_experts
+
     # ---------------- derived ----------------
     def __post_init__(self):
         if self.d_head == 0 and self.n_heads > 0:
@@ -117,6 +129,11 @@ class ModelConfig:
             f"{self.arch_id}: n_layers={self.n_layers} not divisible by "
             f"pattern length {len(self.pattern)}"
         )
+
+    @property
+    def n_held(self) -> int:
+        """The MoE experts this chip holds (of ``moe.n_experts``)."""
+        return self.moe_held or self.moe.n_experts
 
     @property
     def n_groups(self) -> int:
@@ -230,6 +247,18 @@ class ModelConfig:
         )
         small.update(over)
         return dataclasses.replace(self, **small)
+
+
+@dataclass(frozen=True)
+class PortConfig(ModelConfig):
+    """A ``ModelConfig`` with the port's options as fields (defaults:
+    today's behaviour), for a model the JAX package does not compute."""
+
+    attn_rope: bool = True
+    mamba_inner_norms: bool = False
+    moe_renormalize: bool = True
+    moe_held: int = 0
+    moe_held_offset: int = 0
 
 
 # --------------------------------------------------------------------------

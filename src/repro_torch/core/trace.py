@@ -179,6 +179,9 @@ SP_DECODE = 41
 SP_MOE_DISPATCH = 42  # moe_apply_ep: route + dispatch
 SP_MOE_EXPERTS = 43   # its experts
 SP_MOE_COMBINE = 44   # combine and the sum over ``model``
+SP_MAMBA_MIXER = 45   # blocks.mamba_apply: one Mamba layer's mixer
+SP_MAMBA_SCAN = 46    # its selective scan (a full sequence)
+SP_STATE_FILL = 47    # lm.prefill writing the decode state
 
 SPAN_NAMES = {
     SP_SEND: "pt2pt.send",
@@ -210,6 +213,9 @@ SPAN_NAMES = {
     SP_MOE_DISPATCH: "moe.dispatch",
     SP_MOE_EXPERTS: "moe.experts",
     SP_MOE_COMBINE: "moe.combine",
+    SP_MAMBA_MIXER: "mamba.mixer",
+    SP_MAMBA_SCAN: "mamba.scan",
+    SP_STATE_FILL: "serve.state_fill",
 }
 
 # the pt2pt path a send span took

@@ -26,7 +26,8 @@ autograd's through its torch ops.
 
 The ``dist`` argument is the port's ``distributed.DistContext``: each
 rank holds its local tensors, so the blocks' sharding constraints are
-identities and attention, rwkv6 and Mamba need nothing of it. The
+identities and attention, rwkv6 and Mamba need nothing of it but its
+tracer (the spans of the Mamba mixer and of a prefill's state fill). The
 expert-parallel MoE (``moe_apply_ep``) runs the rank's experts and sums
 the partial outputs over ``dist``'s ``model`` ranks.
 """
@@ -39,8 +40,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import MambaConfig, ModelConfig, RWKVConfig
-from repro_torch.core.trace import (SP_MOE_COMBINE, SP_MOE_DISPATCH,
-                                    SP_MOE_EXPERTS)
+from repro_torch.core.trace import (NULL_TRACER, SP_MAMBA_MIXER,
+                                    SP_MAMBA_SCAN, SP_MOE_COMBINE,
+                                    SP_MOE_DISPATCH, SP_MOE_EXPERTS,
+                                    SP_STATE_FILL)
 from repro_torch.kernels import route
 from repro_torch.kernels.flash_attention.ops import flash_attention_bshd
 from repro_torch.kernels.rwkv6.ops import wkv6_bshn
@@ -67,6 +70,18 @@ def dense_init(gen: torch.Generator, shape, scale: float | None = None,
     w = torch.randn((*lead, *shape), generator=gen, dtype=torch.float32,
                     device=device)
     return w.mul_(scale).to(dtype)
+
+
+def fill_state(tr, dst, src) -> None:
+    """``dst.copy_(src)``: a prefill writing the decode state, under the
+    span ``serve.state_fill`` and counted in ``state_fill_bytes`` while
+    the tracer ``tr`` records."""
+    sp = tr.push_span(SP_STATE_FILL) if tr.enabled else -1
+    dst.copy_(src)
+    if tr.enabled:
+        tr.pop_span(sp)
+        tr.metrics.counter("state_fill_bytes",
+                           dst.numel() * dst.element_size())
 
 
 def rmsnorm(x, scale, eps: float):
@@ -232,17 +247,22 @@ def attn_apply(params: Params, cfg: ModelConfig, x, positions, *,
     from ``ctx``, with no rope and no causal mask, through
     ``_plain_attention`` on both devices (the kernel takes equal query
     and key lengths only). cache: optional dict {k: (B, KV, Smax, Dh),
-    v: ...} for self-attention decode; when given, S must be 1 and
+    v: ...} for self-attention decode; when given with S == 1,
     ``cache_len`` (B,) gives the valid prefix length, which must be <
     Smax: ``lm.decode_step`` checks that once per step for a CPU ``pos``
     (``check_kv_room``) and raises ``ValueError`` where the JAX package
     drops or clamps the update. The cache is updated in place (the JAX
     package returns a new one): the one-hot update keeps its add
-    semantics, the ``dus`` update is an indexed write. Returns (out,
-    cache).
+    semantics, the ``dus`` update is an indexed write. Given with S > 1,
+    a prefill from position 0, the attention is the full-sequence one
+    and the cache's positions ``0 .. S-1`` take the sequence's K and V
+    as decode would write them (after rope, where the config has it).
+    Returns (out, cache). Without ``cfg.attn_rope`` self-attention has
+    no positional encoding.
 
-    ``dist`` is not read. Each rank holds the whole cache of its rows, so
-    the JAX package's ``decode_attn="flashdecode"`` (the cache sharded
+    ``dist`` is read for its tracer alone. Each rank holds the whole
+    cache of its rows, so the JAX package's ``decode_attn="flashdecode"``
+    (the cache sharded
     over ``model``, the softmax reduced across it) is the same function
     as the plain path computed here.
     """
@@ -254,13 +274,18 @@ def attn_apply(params: Params, cfg: ModelConfig, x, positions, *,
     q = (x @ params["wq"].to(cdt)).reshape(b, s, H, Dh)
     k = (kv_src @ params["wk"].to(cdt)).reshape(b, -1, KV, Dh)
     v = (kv_src @ params["wv"].to(cdt)).reshape(b, -1, KV, Dh)
-    if not is_cross:
+    if not is_cross and cfg.attn_rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
 
-    if cache is not None:
-        if s != 1:
-            raise ValueError(f"decode with a cache takes one token, got {s}")
+    if cache is not None and s > 1:
+        if s > cache["k"].shape[2]:
+            raise ValueError(f"a prefill of {s} tokens does not fit a KV "
+                             f"cache of {cache['k'].shape[2]}")
+        tr = dist.tracer if dist is not None else NULL_TRACER
+        fill_state(tr, cache["k"][:, :, :s], k.transpose(1, 2))
+        fill_state(tr, cache["v"][:, :, :s], v.transpose(1, 2))
+    if cache is not None and s == 1:
         k_cache, v_cache = cache["k"], cache["v"]     # (B, KV, Smax, Dh)
         pos = cache_len                                # (B,) int
         kn, vn = k.transpose(1, 2), v.transpose(1, 2)  # (B, KV, 1, Dh)
@@ -358,15 +383,19 @@ def cmix_apply(params: Params, cfg: ModelConfig, x, x_prev=None):
 # --------------------------------------------------------------------------
 
 def moe_init(gen, cfg: ModelConfig, *, device="cpu", lead=()) -> Params:
+    """The router over all ``moe.n_experts``, the expert leaves of the
+    ``cfg.n_held`` held here."""
     D, Fd, E = cfg.d_model, cfg.d_ff, cfg.moe.n_experts
+    held = cfg.n_held
     kw = dict(dtype=getattr(torch, cfg.param_dtype), device=device,
               lead=lead)
     return {
         "router": dense_init(gen, (D, E), scale=0.02, **kw),
-        "w_gate": dense_init(gen, (E, D, Fd), scale=1.0 / math.sqrt(D),
+        "w_gate": dense_init(gen, (held, D, Fd), scale=1.0 / math.sqrt(D),
                              **kw),
-        "w_up": dense_init(gen, (E, D, Fd), scale=1.0 / math.sqrt(D), **kw),
-        "w_down": dense_init(gen, (E, Fd, D), scale=1.0 / math.sqrt(Fd),
+        "w_up": dense_init(gen, (held, D, Fd), scale=1.0 / math.sqrt(D),
+                           **kw),
+        "w_down": dense_init(gen, (held, Fd, D), scale=1.0 / math.sqrt(Fd),
                              **kw),
     }
 
@@ -388,7 +417,8 @@ def _top_k(probs, k: int):
 
 def _route(xg, router, cfg: ModelConfig):
     """The router over groups ``xg`` (G, T, D): (probs (G, T, E) f32,
-    renormalised top-k weights and experts (G, T, K), the one-hot
+    top-k weights (renormalised unless ``cfg.moe_renormalize`` is
+    False) and experts (G, T, K), the one-hot
     assignment (G, T, K, E), each (token, k)'s place in its expert's
     queue (G, T, K) int64).
 
@@ -402,7 +432,8 @@ def _route(xg, router, cfg: ModelConfig):
     logits = (xg @ router.to(_dtype(cfg))).float()              # (G,T,E)
     probs = torch.softmax(logits, dim=-1)
     top_p, top_e = _top_k(probs, K)                              # (G,T,K)
-    top_p = top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9)
+    if cfg.moe_renormalize:
+        top_p = top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9)
     onehot = F.one_hot(top_e, E)                                 # (G,T,K,E)
     flat = onehot.reshape(groups, gtok * K, E)
     pos = flat.transpose(1, 2).contiguous().cumsum(-1).transpose(1, 2) \
@@ -479,12 +510,19 @@ def moe_apply(params: Params, cfg: ModelConfig, x):
     flat (token, k) order, so a later dropped entry takes the slot and
     the kept token loses its expert-0 output (``ROADMAP.md`` Queue 3).
     The port reproduces that rule on both devices (``_dispatch``).
+
+    Where the config holds ``cfg.n_held`` of the experts (a block from
+    ``cfg.moe_held_offset``), the router still routes over all of them at
+    their capacity, and an entry for an expert not held here is dropped
+    as one over capacity is: this layer's share of the whole layer's
+    output.
     """
     E, K = cfg.moe.n_experts, cfg.moe.top_k
-    if params["w_gate"].shape[0] != E:
+    held, lo = cfg.n_held, cfg.moe_held_offset
+    if params["w_gate"].shape[0] != held:
         raise ValueError(f"moe_apply: expert leaves of "
                          f"{params['w_gate'].shape[0]} experts, the config "
-                         f"has {E} (a block runs only in moe_apply_ep)")
+                         f"holds {held} (a block runs only in moe_apply_ep)")
     b, s, d = x.shape
     if s > 1:
         groups, gtok = b, s
@@ -495,14 +533,15 @@ def moe_apply(params: Params, cfg: ModelConfig, x):
         xg = x.reshape(groups, gtok, d)
     C = moe_capacity(cfg, gtok)
     probs, top_p, top_e, onehot, pos = _route(xg, params["router"], cfg)
-    keep = pos < C
-    # the slot each (token, k) writes, flat over (E, C); dropped ones all
-    # write the sentinel into (0, C - 1)
-    slot = torch.where(keep, top_e * C + pos, C - 1).reshape(groups, -1)
+    keep = (pos < C) & (top_e >= lo) & (top_e < lo + held)
+    # the slot each (token, k) writes, flat over (held, C); dropped ones
+    # all write the sentinel into (0, C - 1)
+    slot = torch.where(keep, (top_e - lo) * C + pos, C - 1).reshape(
+        groups, -1)
     tok_ids = torch.arange(gtok, device=x.device)[None, :, None].expand(
         groups, gtok, K)
     vals = torch.where(keep, tok_ids, gtok).reshape(groups, -1)
-    dispatch = _dispatch(slot, vals, E * C, gtok)
+    dispatch = _dispatch(slot, vals, held * C, gtok)
     expert_out = _experts(xg, dispatch, params["w_gate"], params["w_up"],
                           params["w_down"], _dtype(cfg))
     y = _combine(expert_out, dispatch, slot, vals, keep, top_p).to(
@@ -533,6 +572,11 @@ def moe_apply_ep(params: Params, cfg: ModelConfig, x, dist):
     The expert leaves are the whole (E, D, F) / (E, F, D), from which the
     rank takes its block, or the block alone (E_loc, ...), as
     ``DistContext.shard_leaf`` cuts them by ``sharding.param_pspecs``.
+    Where the config holds ``cfg.n_held`` of the E experts from
+    ``cfg.moe_held_offset``, the model ranks split that block (E_loc =
+    n_held / TP, the whole leaves hold n_held), every rank routes over
+    all E at their capacity, and entries for experts not held on this
+    chip are another rank's.
 
     Gradients are ``jax.grad``'s through the JAX package's ``shard_map``:
     the output's gradient reaches every rank as it is, and x's and the
@@ -545,18 +589,20 @@ def moe_apply_ep(params: Params, cfg: ModelConfig, x, dist):
     its gradient is the shards' mean, and ``train.steps.make_train_step``
     reports shard 0's as it does.
     """
-    E, K = cfg.moe.n_experts, cfg.moe.top_k
+    K = cfg.moe.top_k
+    held = cfg.n_held
     tp = dist.model_size
-    if tp <= 1 or E % tp:
+    if tp <= 1 or held % tp:
         return moe_apply(params, cfg, x)
-    e_loc = E // tp
-    lo = dist.axis_index("model") * e_loc
+    e_loc = held // tp
+    first = dist.axis_index("model") * e_loc
+    lo = cfg.moe_held_offset + first
     ws = [params[k] for k in ("w_gate", "w_up", "w_down")]
-    if ws[0].shape[0] == E:
-        ws = [w[lo:lo + e_loc] for w in ws]
+    if ws[0].shape[0] == held:
+        ws = [w[first:first + e_loc] for w in ws]
     elif ws[0].shape[0] != e_loc:
         raise ValueError(f"moe_apply_ep: expert leaves of {ws[0].shape[0]} "
-                         f"experts: {E} whole or {e_loc} a model rank")
+                         f"experts: {held} whole or {e_loc} a model rank")
     b, s, d = x.shape
     gtok = b * s
     # host spans of the three phases, on the mesh's tracer while it records
@@ -601,7 +647,13 @@ def mamba_init(gen, cfg: ModelConfig, *, device="cpu", lead=()) -> Params:
     kw = dict(dtype=dt, device=device, lead=lead)
     a_log = torch.log(torch.arange(1, mc.d_state + 1, dtype=torch.float32,
                                    device=device))
+    norms = {}
+    if cfg.mamba_inner_norms:
+        norms = {name: torch.ones((*lead, n), dtype=dt, device=device)
+                 for name, n in (("dt_norm", dt_rank), ("b_norm", mc.d_state),
+                                 ("c_norm", mc.d_state))}
     return {
+        **norms,
         "in_proj": dense_init(gen, (D, 2 * d_in), **kw),
         "conv_w": dense_init(gen, (mc.d_conv, d_in), scale=0.5, **kw),
         "conv_b": torch.zeros((*lead, d_in), dtype=dt, device=device),
@@ -628,61 +680,94 @@ def _chunk_scan(a, b):
     return a, b
 
 
-def _selective_scan(u, dt, B, Cm, A, chunk: int = 64):
+def _selective_scan(u, dt, B, Cm, A, chunk: int = 64, h=None,
+                    tr=NULL_TRACER):
     """u: (b, S, d_in); dt: (b, S, d_in); B, Cm: (b, S, N); A: (d_in, N).
 
     h_t = exp(A*dt_t) h_{t-1} + dt_t * B_t * u_t;  y_t = <Cm_t, h_t>.
-    Chunked as the JAX package computes it: S padded to a multiple of
-    ``chunk``, h carried from chunk to chunk, a parallel scan inside a
-    chunk. One chunk's (b, chunk, d_in, N) terms are held at a time.
+    Chunked as the JAX package computes it: h carried from chunk to
+    chunk, a parallel scan inside a chunk. One chunk's (b, chunk, d_in, N)
+    terms are held at a time. The last chunk runs at its own length where
+    the JAX package pads it with zero steps: a position's value in the
+    doubling scan depends on the positions before it alone, so the outputs
+    are the same, and the last state is that of position S - 1.
+
+    ``h`` (b, d_in, N) f32: the state before the first token (zeros where
+    None), overwritten with the state after the last. ``tr``: a tracer
+    that counts the chunks (``mamba_scan_chunks``) while it records.
     """
     b, S, d_in = u.shape
-    pad = (-S) % chunk
-    if pad:
-        u, dt, B, Cm = (F.pad(a, (0, 0, 0, pad)) for a in (u, dt, B, Cm))
-    h = torch.zeros((b, d_in, A.shape[1]), dtype=torch.float32,
-                    device=u.device)
+    h_c = h if h is not None else torch.zeros(
+        (b, d_in, A.shape[1]), dtype=torch.float32, device=u.device)
     ys = []
-    for c0 in range(0, S + pad, chunk):
+    for c0 in range(0, S, chunk):
         uc, dtc, Bc, Cc = (a[:, c0:c0 + chunk] for a in (u, dt, B, Cm))
         dA = torch.exp(dtc[..., None] * A.float())               # (b,c,d,N)
         dBu = (dtc * uc)[..., None] * Bc[..., None, :]           # (b,c,d,N)
         aa, bb = _chunk_scan(dA, dBu)
-        h_seq = aa * h[:, None] + bb
+        h_seq = aa * h_c[:, None] + bb
         ys.append(torch.einsum("bcdn,bcn->bcd", h_seq, Cc.float()))
-        h = h_seq[:, -1]
-    return torch.cat(ys, dim=1)[:, :S]
+        h_c = h_seq[:, -1]
+    if h is not None:
+        fill_state(tr, h, h_c)
+    if tr.enabled:
+        tr.metrics.counter("mamba_scan_chunks", -(-S // chunk))
+    return torch.cat(ys, dim=1)
 
 
-def mamba_apply(params: Params, cfg: ModelConfig, x, *, state=None):
-    """x: (B, S, D). state: {conv: (B, d_conv-1, d_in), h: (B, d_in, N)}
-    for decode (S == 1), updated in place (the JAX package returns a new
-    one). Returns (y, state or None)."""
+def mamba_apply(params: Params, cfg: ModelConfig, x, *, state=None,
+                dist=None):
+    """x: (B, S, D). state: {conv: (B, d_conv-1, d_in), h: (B, d_in, N)},
+    updated in place (the JAX package returns a new one) to the state
+    after x: for decode (S == 1) as the JAX package steps it; for a
+    prefill (S > 1) the state then holds the last d_conv - 1 pre-conv
+    inputs and the scan's last h (a zero state gives the full-sequence
+    path's numbers).
+    Returns (y, state or None). With ``cfg.mamba_inner_norms`` x_proj's
+    dt, B and C pass through RMSNorms (``dt_norm``, ``b_norm``,
+    ``c_norm``) before dt_proj and the scan. ``dist``'s tracer, while it
+    records, takes the spans ``mamba.mixer`` and ``mamba.scan``."""
     mc = cfg.mamba or MambaConfig()
     cdt = _dtype(cfg)
     b, s, _ = x.shape
+    tr = dist.tracer if dist is not None else NULL_TRACER
+    sp = -1
+    if tr.enabled:
+        sp = tr.push_span(SP_MAMBA_MIXER)
     xz = x @ params["in_proj"].to(cdt)
     xi, z = xz.chunk(2, dim=-1)                        # (B,S,d_in) each
 
     conv_w = params["conv_w"].to(cdt)                  # (d_conv, d_in)
-    if state is None:
-        xpad = F.pad(xi, (0, 0, mc.d_conv - 1, 0))
-        conv = sum(xpad[:, i:i + s] * conv_w[i] for i in range(mc.d_conv))
-    else:
+    decode = state is not None and s == 1
+    if decode:
         hist = torch.cat([state["conv"], xi], dim=1)   # (B, d_conv, d_in)
         conv = torch.einsum("bcd,cd->bd", hist, conv_w)[:, None]
         state["conv"].copy_(hist[:, 1:])
+    else:
+        xpad = F.pad(xi, (0, 0, mc.d_conv - 1, 0)) if state is None \
+            else torch.cat([state["conv"], xi], dim=1)
+        conv = sum(xpad[:, i:i + s] * conv_w[i] for i in range(mc.d_conv))
+        if state is not None:
+            fill_state(tr, state["conv"], xpad[:, s:])
     conv = F.silu(conv + params["conv_b"].to(cdt))
 
     proj = conv @ params["x_proj"].to(cdt)
     dt_rank = params["dt_proj"].shape[0]
     dt_x, Bm, Cm = proj.split([dt_rank, mc.d_state, mc.d_state], dim=-1)
+    if cfg.mamba_inner_norms:
+        dt_x = rmsnorm(dt_x, params["dt_norm"], cfg.norm_eps)
+        Bm = rmsnorm(Bm, params["b_norm"], cfg.norm_eps)
+        Cm = rmsnorm(Cm, params["c_norm"], cfg.norm_eps)
     dt = F.softplus((dt_x @ params["dt_proj"].to(cdt)).float()
                     + params["dt_bias"].float())
     A = -torch.exp(params["A_log"].float())
 
-    if state is None:
-        y = _selective_scan(conv.float(), dt, Bm.float(), Cm.float(), A)
+    if not decode:
+        ssp = tr.push_span(SP_MAMBA_SCAN) if tr.enabled else -1
+        y = _selective_scan(conv.float(), dt, Bm.float(), Cm.float(), A,
+                            h=None if state is None else state["h"], tr=tr)
+        if tr.enabled:
+            tr.pop_span(ssp)
     else:
         h = state["h"]                                 # (B, d_in, N) f32
         dA = torch.exp(dt[:, 0, :, None] * A[None])
@@ -692,7 +777,10 @@ def mamba_apply(params: Params, cfg: ModelConfig, x, *, state=None):
         y = torch.einsum("bdn,bn->bd", h, Cm[:, 0].float())[:, None]
     y = y + conv.float() * params["D"].float()
     y = y.to(cdt) * F.silu(z)
-    return y @ params["out_proj"].to(cdt), state
+    out = y @ params["out_proj"].to(cdt)
+    if tr.enabled:
+        tr.pop_span(sp)
+    return out, state
 
 
 def mamba_state_init(cfg: ModelConfig, batch: int, *, device="cpu",

@@ -285,10 +285,13 @@ def _apply_block(bp: Params, cfg: ModelConfig, blk: BlockSpec, x, positions,
                 ctx=ctx if is_cross else None,
                 cache=None if state is None else state["kv"],
                 cache_len=pos, dist=dist)
-    elif blk.mixer in ("mamba", "rwkv6"):
-        apply = B.mamba_apply if blk.mixer == "mamba" else B.rwkv6_apply
-        mix, _ = apply(bp["mixer"], cfg, h,
-                       state=None if state is None else state["ssm"])
+    elif blk.mixer == "mamba":
+        mix, _ = B.mamba_apply(bp["mixer"], cfg, h,
+                               state=None if state is None else state["ssm"],
+                               dist=dist)
+    elif blk.mixer == "rwkv6":
+        mix, _ = B.rwkv6_apply(bp["mixer"], cfg, h,
+                               state=None if state is None else state["ssm"])
     else:
         raise ValueError(blk.mixer)
 
@@ -358,12 +361,35 @@ def _embed_tokens(params, cfg: ModelConfig, batch, dist=None):
     return params["embed"][tokens.long()].to(B._dtype(cfg))
 
 
-def forward(params: Params, cfg: ModelConfig, batch, *, dist=None):
+def _check_fillable(cfg: ModelConfig, state) -> None:
+    """A prefill writes the decode state of attention and Mamba layers
+    (``blocks.attn_apply``, ``blocks.mamba_apply``); no other mixer's
+    yet."""
+    for blk in cfg.pattern:
+        if blk.mixer not in ("attn", "mamba"):
+            raise NotImplementedError(
+                f"{cfg.arch_id}: a prefill does not fill the decode state "
+                f"of a {blk.mixer} layer")
+    if cfg.kv_cache_dtype == "int8":
+        raise NotImplementedError("a prefill does not fill an int8 KV cache")
+    if len(state) != len(cfg.pattern):
+        raise ValueError("state: one entry per pattern position "
+                         "(decode_state_init)")
+
+
+def forward(params: Params, cfg: ModelConfig, batch, *, dist=None,
+            state=None):
     """Causal full-sequence forward. batch: {"tokens": (B, S)} or
     {"frames": (B, S, D)}, and {"ctx": (B, Nctx, D)} for the
     cross-attention blocks. Returns (x_final (B, S, D), aux), aux the
     sum of the MoE blocks' auxiliary losses (f32 scalar, 0 without
-    MoE)."""
+    MoE). ``state``: a decode state of ``decode_state_init`` (zeros) to
+    fill in place as the sequence runs, from position 0: each attention
+    layer's KV cache at positions ``0 .. S-1``, each Mamba layer's conv
+    and h, so that ``decode_step`` goes on from position S. Other mixers
+    raise ``NotImplementedError``."""
+    if state is not None:
+        _check_fillable(cfg, state)
     x = _embed_tokens(params, cfg, batch, dist)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
@@ -371,9 +397,11 @@ def forward(params: Params, cfg: ModelConfig, batch, *, dist=None):
     if ctx is not None:
         ctx = torch.as_tensor(ctx, device=x.device).to(x.dtype)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for gp in _groups(params["blocks"], cfg.n_groups):
+    for g, gp in enumerate(_groups(params["blocks"], cfg.n_groups)):
+        gs = None if state is None else _group(state, g)
         for p, blk in enumerate(cfg.pattern):
             x, a = _apply_block(gp[p], cfg, blk, x, positions, ctx=ctx,
+                                state=None if gs is None else gs[p],
                                 dist=dist)
             if a is not None:
                 aux = aux + a
@@ -465,10 +493,13 @@ def decode_step(params: Params, cfg: ModelConfig, state, batch, pos, *,
     return _logits(params, cfg, x[:, 0]), state
 
 
-def prefill(params: Params, cfg: ModelConfig, batch, *, dist=None):
+def prefill(params: Params, cfg: ModelConfig, batch, *, dist=None,
+            state=None):
     """Full-sequence prefill returning last-position logits (B, vocab)
     f32. On the card every self-attention layer runs the flash attention
     kernel and every rwkv6 layer the WKV6 kernel, once each; a
-    cross-attention layer given ``batch["ctx"]`` runs plain torch ops."""
-    x, _ = forward(params, cfg, batch, dist=dist)
+    cross-attention layer given ``batch["ctx"]`` runs plain torch ops.
+    ``state`` (``decode_state_init``'s, at least S long) is filled in
+    place for ``decode_step`` to go on from position S (``forward``)."""
+    x, _ = forward(params, cfg, batch, dist=dist, state=state)
     return _logits(params, cfg, x[:, -1])

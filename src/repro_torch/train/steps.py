@@ -252,20 +252,26 @@ class ServeStep:
 
 def make_serve_prefill(cfg: ModelConfig, shape: InputShape,
                        dist: Optional[DistContext]) -> ServeStep:
-    """``fn(params, batch)``: ``lm.prefill`` of the rank's rows of the
-    global batch, without autograd; the rank's last-position logits."""
+    """``fn(params, batch, state=None)``: ``lm.prefill`` of the rank's
+    rows of the global batch, without autograd; the rank's last-position
+    logits. Given ``state`` (the rank's ``lm.decode_state_init`` at its
+    rows, zeros), the prefill also fills it, as a prefill server hands a
+    request to decode (attention and Mamba layers; ``lm.forward``), and
+    ``fn`` returns (logits, state): ``make_serve_decode``'s step then
+    goes on from position ``shape.seq_len``."""
     d = make_dist(cfg, shape, dist)
     tr = d.tracer if d is not None else NULL_TRACER
 
     @torch.no_grad()
-    def serve_prefill(params, batch):
+    def serve_prefill(params, batch, state=None):
         sp = -1
         if tr.enabled:
             sp = tr.push_span(SP_PREFILL)
         try:
             if d is not None:
                 batch = d.shard_batch(batch)
-            return lm.prefill(params, cfg, batch, dist=d)
+            logits = lm.prefill(params, cfg, batch, dist=d, state=state)
+            return logits if state is None else (logits, state)
         finally:
             if tr.enabled:
                 tr.pop_span(sp)

@@ -131,7 +131,7 @@ import json, sys
 from pathlib import Path
 sys.path[:0] = [{tools!r}]
 import span_report
-from cmpibench.tests.cpu_cells import make_root
+from cmpibench.tests.tiny_cells import make_root
 root = make_root(Path({tmp!r}))
 out = {{c: span_report.report(c, {seed}, 1.0, root, "cpu")
         for c in ("osu.tiny-pingpong", "osu.tiny-stream",

@@ -219,7 +219,7 @@ def main(argv=None) -> int:
     a = p.parse_args(argv)
     root, device = ROOT, "cuda"
     if a.cpu:
-        from cmpibench.tests.cpu_cells import make_root
+        from cmpibench.tests.tiny_cells import make_root
         root, device = make_root(Path(tempfile.mkdtemp())), "cpu"
     else:
         from repro_torch.kernels.build import build
