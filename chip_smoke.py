@@ -1621,6 +1621,105 @@ def wkv6_bwd_timing(split: dict | None) -> dict:
                 kern * 1e-3 * sm_clock_max_hz() / s}
 
 
+# the selective scan (``kernels/selective_scan``): (b, S, d_in, N, whether
+# a state is given): one token, a tile's edge and ragged tiles, d_in not a
+# multiple of a CTA's channels, every state size the kernel instantiates,
+# and a Jamba2-Mini layer's prefill (``SCAN_TIMED``) filling its state;
+# y and the last state each within SCAN_TOL of the plain version's
+# largest |value| (the two differ in the order of rounding and in exp2
+# for exp)
+SCAN_TIMED = (1, 8192, 8192, 16)
+SCAN_CASES = [(1, 1, 64, 16, False), (2, 63, 100, 16, True),
+              (2, 64, 100, 16, False), (2, 300, 100, 16, True),
+              (1, 300, 72, 4, True), (1, 130, 200, 4, False),
+              (*SCAN_TIMED, True)]
+SCAN_TOL = 1e-5
+SFU_EXP_PER_CLOCK_SM = 16        # Hopper: MUFU.EX2 a clock an SM
+
+
+def _scan_inputs(b, s, d_in, n, g, with_h=False):
+    """u, dt, B, C, A (and h where asked) in the model's regime: dt a
+    softplus near its bias's 0.01, A = -(1..n) times e^(0.1 x), f32."""
+    import torch
+    import torch.nn.functional as F
+    u = _randn((b, s, d_in), g)
+    dt = F.softplus(_randn((b, s, d_in), g) * 0.5 - 4.6)
+    B, C = _randn((b, s, n), g), _randn((b, s, n), g)
+    A = -torch.arange(1, n + 1, dtype=torch.float32, device="cuda").repeat(
+        d_in, 1) * torch.exp(_randn((d_in, n), g) * 0.1)
+    return u, dt, B, C, A, _randn((b, d_in, n), g) if with_h else None
+
+
+def scan_kernel_phase(check: FloatCheck) -> None:
+    """Every ``SCAN_CASES`` case: the kernel's y and last state against
+    the plain version's on the card, one launch a call, and the launch
+    the library plans held to ``ops.launch_plan``."""
+    import ctypes
+
+    import torch
+
+    from repro_torch.kernels.build import load
+    from repro_torch.kernels.selective_scan import ops as ss
+    g = torch.Generator(device="cuda").manual_seed(13)
+    out = (ctypes.c_int * 6)()
+    for b, s, d_in, n, with_h in SCAN_CASES:
+        plan = ss.launch_plan(b, d_in, n)
+        if load().selective_scan_plan(b, d_in, n, out):
+            fail(f"selective_scan_plan failed at {(b, d_in, n)}")
+        got_plan = {"grid": (out[0], out[1]), "threads": out[2],
+                    "smem_bytes": out[3], "tile": out[4],
+                    "channels": out[5]}
+        if got_plan != plan:
+            fail(f"selective_scan: the library plans {got_plan}, "
+                 f"ops.launch_plan {plan}")
+        args = _scan_inputs(b, s, d_in, n, g, with_h)
+        want_y, want_h = ss.selective_scan_ref(*args)
+        before = ss.LAUNCHES
+        got_y, got_h = ss.selective_scan(*args)
+        torch.cuda.synchronize()
+        if ss.LAUNCHES != before + 1:
+            fail(f"selective_scan: {ss.LAUNCHES - before} launches a call")
+        what = f"({b},{s},{d_in},{n}) h={'given' if with_h else 'zeros'}"
+        check.rel(what + " y", got_y, want_y, SCAN_TOL)
+        check.rel(what + " last state", got_h, want_h, SCAN_TOL)
+        del args, want_y, want_h, got_y, got_h
+
+
+def scan_timing() -> dict:
+    """The kernel at ``SCAN_TIMED`` beside its bound (the larger of its
+    bytes at HBM's rate and its exponentials on the card's SFUs at its
+    highest clock) and the plain version (some 45 launches a 64-token
+    chunk, more than the launch queue holds: timed without the spin)."""
+    import torch
+
+    from repro_torch.analysis.hlo import bound_ms
+    from repro_torch.kernels.selective_scan import ops as ss
+    b, s, d_in, n = SCAN_TIMED
+    g = torch.Generator(device="cuda").manual_seed(14)
+    args = _scan_inputs(b, s, d_in, n, g)
+    kern, issued = _time_ms(lambda: ss.selective_scan(*args), 20, 3)
+    plain, _ = _time_ms(lambda: ss.selective_scan_ref(*args), 2, 1,
+                        spin=False)
+    flops, nbytes = ss.work(b, s, d_in, n)
+    mem_ms, mem_by = bound_ms(flops, nbytes, "float32")
+    clock_hz = sm_clock_max_hz()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    sfu_ms = b * s * d_in * n / (SFU_EXP_PER_CLOCK_SM * sms * clock_hz) \
+        * 1e3
+    bound, by = max((mem_ms, mem_by), (sfu_ms, "exponentials (SFU)"))
+    plan = ss.launch_plan(b, d_in, n)
+    return {"shape": f"B={b} S={s} d_in={d_in} N={n} f32",
+            "ms": kern, "issued_ms": issued, "plain_ms": plain,
+            "library_ms": None, "bound_ms": bound, "bound_by": by,
+            "bytes_bound_ms": mem_ms, "sfu_bound_ms": sfu_ms,
+            "GBps": nbytes / kern / 1e6,
+            "CTAs": plan["grid"][0] * plan["grid"][1],
+            "threads_per_CTA": plan["threads"],
+            "smem_bytes": plan["smem_bytes"],
+            "cycles_per_token_at_max_clock":
+                kern * 1e-3 * clock_hz / s}
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the model path
 # ---------------------------------------------------------------------------
@@ -1685,10 +1784,12 @@ def model_config(arch: str):
 def prefill_launches(cfg) -> dict:
     """Kernel launches one prefill makes: ``flash_attention`` once per
     self-attention layer (a cross-attention layer given its context runs
-    plain torch ops), ``wkv6`` once per rwkv6 layer."""
+    plain torch ops), ``wkv6`` once per rwkv6 layer, ``selective_scan``
+    once per Mamba layer."""
     def layers(mixer):
         return sum(b.mixer == mixer for b in cfg.pattern) * cfg.n_groups
-    return {"flash_attention": layers("attn"), "wkv6": layers("rwkv6")}
+    return {"flash_attention": layers("attn"), "wkv6": layers("rwkv6"),
+            "selective_scan": layers("mamba")}
 
 
 def model_batch(params, cfg, toks, ctx=None) -> dict:
@@ -1799,9 +1900,10 @@ def model_phase(arch: str) -> dict:
     from repro_torch.kernels.cellcopy import ops as cc
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.rwkv6 import ops as wk
+    from repro_torch.kernels.selective_scan import ops as ss
     from repro_torch.launch.serve import serve_batch
     from repro_torch.models import lm
-    kernels = {"flash_attention": fa, "wkv6": wk}
+    kernels = {"flash_attention": fa, "wkv6": wk, "selective_scan": ss}
     cfg, reduced = model_config(arch)
     per_prefill = prefill_launches(cfg)
     torch.cuda.reset_peak_memory_stats()
@@ -1815,7 +1917,7 @@ def model_phase(arch: str) -> dict:
                  "launches_per_prefill": per_prefill}
 
     # the main path: counts to 0 just before, read just after
-    cc.LAUNCHES = fa.LAUNCHES = wk.LAUNCHES = 0
+    cc.LAUNCHES = fa.LAUNCHES = wk.LAUNCHES = ss.LAUNCHES = 0
     served = serve_batch(cfg, params=params, seed=0, quiet=True,
                          device="cuda", **SERVE)
     if served["tokens"].shape != (SERVE["batch"], SERVE["gen"]) or not (
@@ -1825,7 +1927,7 @@ def model_phase(arch: str) -> dict:
     res["serve"] = {k: served[k] for k in
                     ("decode_tok_per_s", "prefill_s", "decode_s")}
     res["serve"]["peak_GB"] = torch.cuda.max_memory_allocated() / 1e9
-    if fa.LAUNCHES or wk.LAUNCHES:
+    if fa.LAUNCHES or wk.LAUNCHES or ss.LAUNCHES:
         fail(f"{arch}: serve_batch's teacher-forced prefill launched a "
              "prefill kernel")
     rng = np.random.default_rng(0)          # serve_batch's prompts
@@ -1849,7 +1951,7 @@ def model_phase(arch: str) -> dict:
         n = {k: m.LAUNCHES - before[k] for k, m in kernels.items()}
         if n != per_prefill:
             fail(f"{arch} {what}: kernel launches {n}, want one per "
-                 f"self-attention or rwkv6 layer {per_prefill}")
+                 f"self-attention, rwkv6 or Mamba layer {per_prefill}")
         b = next(iter(batch.values())).shape[0]
         if logits.shape != (b, cfg.vocab_size) or not bool(
                 torch.isfinite(logits).all()):
@@ -3103,15 +3205,17 @@ def sm_clock_max_hz() -> float:
 
 def kernel_build_report(build) -> dict:
     """Registers and spills (ptxas) of the ``cellcopy`` kernel and of
-    each ``wkv6`` instance, the CTA's shared memory, and the cluster
-    size at the data plane's shapes; fails if the static shared memory
-    of a ``cellcopy`` CTA is not what ``ops.smem_bytes`` states."""
+    each ``wkv6`` and ``selective_scan`` instance, the CTA's shared
+    memory, and the cluster size at the data plane's shapes; fails if the
+    static shared memory of a ``cellcopy`` CTA is not what
+    ``ops.smem_bytes`` states."""
     import ctypes
 
     import torch
 
     from repro_torch.kernels.cellcopy import ops as cc
     from repro_torch.kernels.rwkv6 import ops as wk
+    from repro_torch.kernels.selective_scan import ops as ss
     lib = build.load()
     ptxas = _ptxas_kernels(build.BUILD_LOG.get("log", ""))
 
@@ -3146,6 +3250,16 @@ def kernel_build_report(build) -> dict:
             report[key] = info
             say(f"[build] {key}: {json.dumps(info)}")
             report.update(_wkv6_bwd_build(lib, props, dt, mangled, n))
+    for n in ss.STATE_SIZES:
+        key = f"selective_scan_kernel<{n}>"
+        plan = ss.launch_plan(SCAN_TIMED[0], SCAN_TIMED[2], n)
+        info = {**props(f"selective_scan_kernelILi{n}E"),
+                "threads": plan["threads"],
+                "dynamic_smem_bytes": plan["smem_bytes"],
+                "channels_per_CTA": plan["channels"],
+                "CTAs_at_d_in_8192": plan["grid"][0]}
+        report[key] = info
+        say(f"[build] {key}: {json.dumps(info)}")
     return report
 
 
@@ -3694,6 +3808,12 @@ def main() -> None:
                 f"comparisons, max abs err {k['max_abs_err']:.3g}, max rel "
                 f"err {k['max_rel_err']:.3g}, largest share of the allclose "
                 f"bound {k['bound_use']:.3g} at {k['worst_case']}")
+        scheck = FloatCheck("selective_scan")
+        scan_kernel_phase(scheck)
+        say(f"[kernel] selective_scan: {scheck.cases} comparisons within "
+            f"{SCAN_TOL} of the largest value, max abs err "
+            f"{scheck.max_abs_err:.3g}, max rel err "
+            f"{scheck.max_rel_err:.3g}")
         say(f"[kernel] model kernels {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
         wkv6_bwd = wkv6_bwd_phase()
@@ -3821,7 +3941,8 @@ def main() -> None:
         say(f"[time] {json.dumps(r)}")
     flash_rows, wkv_rows = model_kernel_timings()
     bwd_row = wkv6_bwd_timing(bwd_split)
-    for r in flash_rows + wkv_rows + [bwd_row]:
+    scan_row = scan_timing()
+    for r in flash_rows + wkv_rows + [bwd_row, scan_row]:
         say(f"[time] {json.dumps(r)}")
     head = rows[0]
     by_path = {"message_plane": sum(launches),
@@ -3903,6 +4024,24 @@ def main() -> None:
         "shapes": [bwd_row],
         "dryrun_charged_launches": dry_launches.get("wkv6_bwd", {}),
         "build": {k: v for k, v in kernel_build.items() if "bwd" in k}})
+    entries.append({
+        "name": "selective_scan", "route": "cuda",
+        "source": "src/repro_torch/csrc/selective_scan.cu",
+        "replaces": "none: the JAX package's scan is jnp "
+                    "(src/repro/models/blocks.py:555)",
+        "launches": sum(m["launches"]["selective_scan"]
+                        for m in models.values()),
+        "launches_by_model": {a: m["launches"]["selective_scan"]
+                              for a, m in models.items()
+                              if m["launches"]["selective_scan"]},
+        "mismatches": scheck.mismatches, "max_abs_err": scheck.max_abs_err,
+        "max_rel_err": scheck.max_rel_err, "shape": scan_row["shape"],
+        "ms": scan_row["ms"], "plain_ms": scan_row["plain_ms"],
+        "bound_ms": scan_row["bound_ms"], "bound_by": scan_row["bound_by"],
+        "library_ms": None, "shapes": [scan_row],
+        "dryrun_charged_launches": dry_launches.get("selective_scan", {}),
+        "build": {k: v for k, v in kernel_build.items()
+                  if "selective_scan" in k}})
     say(json.dumps({"one_way_latency_bandwidth": lat}))
     say(json.dumps({"one_sided_latency_bandwidth": one_sided}))
     say(json.dumps({"serve_tier": serve_tier}))

@@ -23,7 +23,7 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[1]
 SOURCES = tuple(_PKG / "csrc" / f for f in (
-    "cellcopy.cu", "flash_attention.cu", "wkv6.cu"))
+    "cellcopy.cu", "flash_attention.cu", "selective_scan.cu", "wkv6.cu"))
 BUILD_DIR = _PKG.parents[1] / "build" / "kernels"
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -126,6 +126,10 @@ def load() -> ctypes.CDLL:
             lib.flash_attention_order.argtypes = [i] * 6 + \
                 [ctypes.POINTER(i)]
             lib.flash_attention_order.restype = ctypes.c_int
+            lib.selective_scan_fwd.argtypes = [vp] * 8 + [i] * 4 + [vp]
+            lib.selective_scan_fwd.restype = ctypes.c_int
+            lib.selective_scan_plan.argtypes = [i] * 3 + [ctypes.POINTER(i)]
+            lib.selective_scan_plan.restype = ctypes.c_int
             lib.wkv6_fwd.argtypes = [vp] * 6 + [i] * 5 + [ll] * 6 + [vp]
             lib.wkv6_fwd.restype = ctypes.c_int
             lib.wkv6_plan.argtypes = [i] * 4 + [ctypes.POINTER(i)]

@@ -5,15 +5,16 @@ mix.
 
 All blocks are plain functions ``apply(params, x, ...) -> y`` over
 parameter dicts laid out as the JAX package's trees. On a CUDA tensor the
-full-sequence causal self-attention and the WKV6 prefill run the port's
-hand-written kernels; on the CPU they keep the JAX package's jnp
-structure (``_plain_attention`` / ``_chunked_attention``, ``_wkv6_scan``),
-so the CPU tests compare like with like. Meta tensors under the dry
-run's counter (``analysis.hlo.count``) take the kernels' route, which
+full-sequence causal self-attention, the WKV6 prefill and the Mamba
+prefill's scan run the port's hand-written kernels; on the CPU they keep
+the JAX package's jnp structure (``_plain_attention`` /
+``_chunked_attention``, ``_wkv6_scan``, the selective scan's plain
+version), so the CPU tests compare like with like. Meta tensors under the
+dry run's counter (``analysis.hlo.count``) take the kernels' route, which
 launches nothing; any other device raises.
-Cross-attention (queries and keys of different lengths), the MoE
-dispatch and the Mamba scan are plain torch ops on both devices, as the
-JAX package computes them outside any Pallas kernel.
+Cross-attention (queries and keys of different lengths) and the MoE
+dispatch are plain torch ops on both devices, as the JAX package computes
+them outside any Pallas kernel.
 
 Training (``lm.loss_fn``, driven by ``launch/train.py``) differentiates
 these functions with autograd. On the CPU the gradient runs through the
@@ -21,8 +22,10 @@ plain versions. On the card the self-attention gradient is the flash
 kernel's torch-op backward (``kernels/flash_attention/bwd.py``: the
 softmax recomputed a block of query rows at a time), and an rwkv6
 layer's is the hand-written ``wkv6_bwd`` kernel (the ``WKV6`` autograd
-Function of ``kernels/rwkv6/ops.py``); every other block's gradient is
-autograd's through its torch ops.
+Function of ``kernels/rwkv6/ops.py``), and a Mamba scan's is autograd's
+through its plain version, run again on the saved inputs (the
+``SelectiveScan`` Function of ``kernels/selective_scan/ops.py``); every
+other block's gradient is autograd's through its torch ops.
 
 The ``dist`` argument is the port's ``distributed.DistContext``: each
 rank holds its local tensors, so the blocks' sharding constraints are
@@ -47,6 +50,8 @@ from repro_torch.core.trace import (NULL_TRACER, SP_MAMBA_MIXER,
 from repro_torch.kernels import route
 from repro_torch.kernels.flash_attention.ops import flash_attention_bshd
 from repro_torch.kernels.rwkv6.ops import wkv6_bshn
+from repro_torch.kernels.selective_scan.ops import CHUNK as SCAN_CHUNK
+from repro_torch.kernels.selective_scan.ops import selective_scan
 
 Params = dict[str, Any]
 
@@ -667,52 +672,27 @@ def mamba_init(gen, cfg: ModelConfig, *, device="cpu", lead=()) -> Params:
     }
 
 
-def _chunk_scan(a, b):
-    """Inclusive scan over dim 1 of the pairs (a, b) under the combine
-    (al * ar, bl * ar + br), the JAX package's associative scan, by
-    log-step doubling (Hillis-Steele): 6 steps for a 64-token chunk."""
-    n, step = a.shape[1], 1
-    while step < n:
-        b = torch.cat([b[:, :step], b[:, :-step] * a[:, step:]
-                       + b[:, step:]], dim=1)
-        a = torch.cat([a[:, :step], a[:, :-step] * a[:, step:]], dim=1)
-        step *= 2
-    return a, b
-
-
-def _selective_scan(u, dt, B, Cm, A, chunk: int = 64, h=None,
-                    tr=NULL_TRACER):
+def _selective_scan(u, dt, B, Cm, A, h=None, tr=NULL_TRACER):
     """u: (b, S, d_in); dt: (b, S, d_in); B, Cm: (b, S, N); A: (d_in, N).
 
     h_t = exp(A*dt_t) h_{t-1} + dt_t * B_t * u_t;  y_t = <Cm_t, h_t>.
-    Chunked as the JAX package computes it: h carried from chunk to
-    chunk, a parallel scan inside a chunk. One chunk's (b, chunk, d_in, N)
-    terms are held at a time. The last chunk runs at its own length where
-    the JAX package pads it with zero steps: a position's value in the
-    doubling scan depends on the positions before it alone, so the outputs
-    are the same, and the last state is that of position S - 1.
+    ``kernels/selective_scan``: the hand-written kernel on the card, the
+    JAX package's chunked scan in torch ops on the CPU.
 
     ``h`` (b, d_in, N) f32: the state before the first token (zeros where
-    None), overwritten with the state after the last. ``tr``: a tracer
-    that counts the chunks (``mamba_scan_chunks``) while it records.
+    None), overwritten with the state after the last (``fill_state``).
+    ``tr``: a tracer that counts, while it records, the plain version's
+    64-token chunks (``mamba_scan_chunks``) and the layers the kernel
+    scanned (``mamba_scan_kernel``).
     """
-    b, S, d_in = u.shape
-    h_c = h if h is not None else torch.zeros(
-        (b, d_in, A.shape[1]), dtype=torch.float32, device=u.device)
-    ys = []
-    for c0 in range(0, S, chunk):
-        uc, dtc, Bc, Cc = (a[:, c0:c0 + chunk] for a in (u, dt, B, Cm))
-        dA = torch.exp(dtc[..., None] * A.float())               # (b,c,d,N)
-        dBu = (dtc * uc)[..., None] * Bc[..., None, :]           # (b,c,d,N)
-        aa, bb = _chunk_scan(dA, dBu)
-        h_seq = aa * h_c[:, None] + bb
-        ys.append(torch.einsum("bcdn,bcn->bcd", h_seq, Cc.float()))
-        h_c = h_seq[:, -1]
+    y, h_last = selective_scan(u, dt, B, Cm, A, h)
     if h is not None:
-        fill_state(tr, h, h_c)
+        fill_state(tr, h, h_last)
     if tr.enabled:
-        tr.metrics.counter("mamba_scan_chunks", -(-S // chunk))
-    return torch.cat(ys, dim=1)
+        tr.metrics.counter("mamba_scan_chunks", -(-u.shape[1] // SCAN_CHUNK))
+        if u.is_cuda:
+            tr.metrics.counter("mamba_scan_kernel")
+    return y
 
 
 def mamba_apply(params: Params, cfg: ModelConfig, x, *, state=None,

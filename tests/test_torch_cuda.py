@@ -175,3 +175,95 @@ def test_meta_and_card_counts_equal(card):
     assert card_st.kernels == meta_st.kernels
     assert launched == tuple(card_st.kernels[n]["launches"] for n in (
         "flash_attention", "wkv6", "wkv6_bwd")) == (1, 1, 1)
+
+
+def _scan_inputs(b, s, d_in, n, seed=0, with_h=False):
+    """u, dt, B, C, A (and h) on the card in the model's regime: dt a
+    softplus near its bias's 0.01, A = -(1..n) times e^(0.1 x), f32."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+    u = randn(b, s, d_in)
+    dt = torch.nn.functional.softplus(randn(b, s, d_in) * 0.5 - 4.6)
+    B, C = randn(b, s, n), randn(b, s, n)
+    A = -torch.arange(1, n + 1, dtype=torch.float32, device="cuda") \
+        .repeat(d_in, 1) * torch.exp(randn(d_in, n) * 0.1)
+    return u, dt, B, C, A, randn(b, d_in, n) if with_h else None
+
+
+@pytest.mark.parametrize("b,s,d_in,n,with_h", [
+    (1, 1, 64, 16, False), (2, 63, 100, 16, True), (2, 64, 100, 16, False),
+    (2, 300, 100, 16, True), (1, 300, 72, 4, True),
+    (1, 8192, 8192, 16, False), (1, 8192, 8192, 16, True)])
+def test_selective_scan_kernel_on_the_card(card, b, s, d_in, n, with_h):
+    """The kernel against the plain version on the card: one token, a
+    tile's edge, ragged tiles, d_in = 100 (not a multiple of a CTA's 32
+    channels), b = 2, the reduced configs' N = 4 and a Jamba2-Mini
+    layer's prefill; y and the last state each within 1e-5 of the plain
+    version's largest |value| (``chip_smoke.SCAN_TOL``: the order of
+    rounding and exp2 for exp); one launch a call."""
+    from repro_torch.kernels.selective_scan import ops as ss
+    args = _scan_inputs(b, s, d_in, n, seed=s + d_in, with_h=with_h)
+    want_y, want_h = ss.selective_scan_ref(*args)
+    before = ss.LAUNCHES
+    got_y, got_h = ss.selective_scan(*args)
+    torch.cuda.synchronize()
+    assert ss.LAUNCHES == before + 1
+    for got, want in ((got_y, want_y), (got_h, want_h)):
+        assert got.shape == want.shape and got.dtype == torch.float32
+        err = float((got - want).abs().max())
+        assert err <= 1e-5 * float(want.abs().max())
+
+
+def test_selective_scan_gradient_on_the_card(card):
+    """The Function's backward is the plain version's autograd on the
+    saved inputs: with the same output gradients the input gradients,
+    h's included, equal autograd through the plain version bit for
+    bit."""
+    from repro_torch.kernels.selective_scan import ops as ss
+    args = _scan_inputs(2, 130, 40, 16, seed=5, with_h=True)
+    g = torch.Generator(device="cuda").manual_seed(6)
+    dy = torch.randn(2, 130, 40, generator=g, device="cuda")
+    dh = torch.randn(2, 40, 16, generator=g, device="cuda")
+    grads = []
+    for fn in (ss.selective_scan, ss.selective_scan_ref):
+        leaves = [t.clone().requires_grad_(True) for t in args]
+        y, h_last = fn(*leaves)
+        ((y * dy).sum() + (h_last * dh).sum()).backward()
+        grads.append([t.grad for t in leaves])
+    for got, want in zip(*grads):
+        assert torch.equal(got, want)
+
+
+def test_mamba_layers_count_their_kernel_scans(card):
+    """While the tracer records, each Mamba prefill layer on the card
+    counts one ``mamba_scan_kernel`` and its ``mamba_scan_chunks``; a
+    decode step launches no scan and counts neither; nothing is counted
+    while the tracer is off."""
+    from types import SimpleNamespace
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.trace import Tracer
+    from repro_torch.kernels.selective_scan import ops as ss
+    from repro_torch.models import blocks
+    cfg = get_config("jamba2-mini").reduced()
+    params = blocks.mamba_init(torch.Generator(device="cuda").manual_seed(0),
+                               cfg, device="cuda")
+    state = blocks.mamba_state_init(cfg, 2, device="cuda")
+    tr = Tracer(enabled=False)
+    dist = SimpleNamespace(tracer=tr)
+    x = torch.randn(2, 70, cfg.d_model, device="cuda").to(
+        getattr(torch, cfg.compute_dtype))
+    before = ss.LAUNCHES
+    blocks.mamba_apply(params, cfg, x, state=state, dist=dist)
+    assert not tr.metrics.counters
+    tr.start()
+    for _ in range(3):
+        blocks.mamba_apply(params, cfg, x, state=state, dist=dist)
+    blocks.mamba_apply(params, cfg, x[:, :1], state=state, dist=dist)
+    tr.stop()
+    torch.cuda.synchronize()
+    assert ss.LAUNCHES == before + 4
+    assert tr.metrics.counters["mamba_scan_kernel"] == 3
+    assert tr.metrics.counters["mamba_scan_chunks"] == 3 * 2
