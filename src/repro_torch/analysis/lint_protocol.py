@@ -37,7 +37,8 @@ over the ASTs of ``src/repro_torch/core``:
     ``progress.py`` runs cooperatively: every wait loop must tick the
     engine and may only yield (``time.sleep(0)``). Any sleep with a
     nonzero or non-literal argument would stall EVERY outstanding
-    request on the rank.
+    request on the rank. The port's wait loops are all one, ``spin`` in
+    ``wait.py``, which the rule covers too.
 
 ``LP004`` matchbox single-writer discipline
     The 64-byte matchbox entry is split receiver-owned
@@ -62,7 +63,7 @@ over the ASTs of ``src/repro_torch/core``:
     each call of a span or sync-timing method (``_SPAN_CALLS``:
     ``open_span``, ``close_span``, ``mark``, ``synced`` ...) in the
     files that make them: the tick-path files and ``coherence.py``,
-    ``pool.py`` and ``comm.py``. (``emit`` keeps the reference's scope,
+    ``pool.py``, ``comm.py`` and ``wait.py``. (``emit`` keeps the reference's scope,
     the tick-path files.)
 
 CLI: ``python -m repro_torch.analysis.lint_protocol [paths...]``
@@ -91,7 +92,7 @@ _RAW_WAIVER = re.compile(r"#\s*lint:\s*raw-ok")
 _SURFACE_RE = re.compile(r"^i?(send|recv)(_[a-z0-9_]+)?$")
 _RESERVED_NAME = "TAG_RESERVED_BASE"
 
-_TICK_FILES = {"progress.py"}
+_TICK_FILES = {"progress.py", "wait.py"}
 
 _MB_SENDER_FIELDS = {"_MB_CLAIM", "_MB_FILL"}
 _MB_RECEIVER_FIELDS = {"_MB_TAG", "_MB_DEST", "_MB_CAP"}
@@ -103,7 +104,8 @@ _SPAN_CALLS = {"open_span", "open_child", "close_span", "push_span",
                "pop_span", "leave_span", "mark", "add_waits", "end_send",
                "dequeued", "recv_done", "staged", "ack_seen", "synced",
                "send_seq", "call_seq"}
-_SPAN_FILES = _TRACE_FILES | {"coherence.py", "pool.py", "comm.py"}
+_SPAN_FILES = _TRACE_FILES | {"coherence.py", "pool.py", "comm.py",
+                              "wait.py"}
 _EMIT_ARG_BANNED = (ast.JoinedStr, ast.Dict, ast.DictComp, ast.ListComp,
                     ast.SetComp, ast.GeneratorExp)
 

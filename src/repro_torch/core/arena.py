@@ -18,10 +18,10 @@ adds POSIX-SHM-like named objects without kernel support:
   holds about one entry per hole between live objects; every object is
   cacheline(64B)-aligned (paper §3.7: alignment makes the flush protocol
   and non-temporal accesses exact).
-* creation/destruction are serialized by a Lamport BAKERY lock living in
-  the pool itself — mutual exclusion with only per-rank single-writer
-  slots, because CXL pooled memory provides no cross-host atomic RMW
-  (paper §3.5). Lookup (open) is lock-free.
+* creation/destruction are serialized by a Lamport BAKERY lock
+  (``sync.BakeryLock``) in the pool itself — mutual exclusion with only
+  per-rank single-writer slots, because CXL pooled memory provides no
+  cross-host atomic RMW (paper §3.5). Lookup (open) is lock-free.
 
 All accesses go through ``CoherentView`` so the same code is correct on an
 incoherent pool (write_release / read_acquire / non-temporal control words).
@@ -31,11 +31,11 @@ init / finalize.
 """
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
 
 from repro_torch.core.coherence import CoherentView
 from repro_torch.core.pool import CACHELINE, Pool
+from repro_torch.core.sync import BakeryLock
 
 MAGIC = b"CXLARENA"
 VERSION = 1
@@ -44,9 +44,9 @@ NAME_MAX = 47
 MAX_RANKS = 64
 
 _HDR_SIZE = 128
-_BAKERY_CHOOSING = _HDR_SIZE                       # u8[MAX_RANKS]
-_BAKERY_NUMBER = _BAKERY_CHOOSING + MAX_RANKS      # u64[MAX_RANKS]
-_BAKERY_END = _BAKERY_NUMBER + 8 * MAX_RANKS
+# the bakery: choosing u8[MAX_RANKS], then number u64[MAX_RANKS]
+_BAKERY_CHOOSING = _HDR_SIZE
+_BAKERY_END = _BAKERY_CHOOSING + BakeryLock.region_bytes(MAX_RANKS)
 
 # header fields (absolute offsets)
 _H_MAGIC = 0
@@ -123,6 +123,8 @@ class Arena:
         self.rank = rank
         self.view = CoherentView(pool, mode)
         v = self.view
+        # creation/destruction lock (no timeout: a create waits its turn)
+        self._bakery = BakeryLock(v, _BAKERY_CHOOSING, MAX_RANKS, rank)
         magic = v.read_acquire(_H_MAGIC, 8)
         if initialize is None:
             initialize = magic != MAGIC
@@ -185,33 +187,6 @@ class Arena:
         for c in caps:
             self.level_off.append(o)
             o += c * SLOT_SIZE
-
-    # ------------------------------------------------------------------
-    # bakery lock (atomics-free mutual exclusion in the pool)
-    # ------------------------------------------------------------------
-    def _lock(self) -> None:
-        v = self.view
-        r = self.rank
-        v.nt_store_u8(_BAKERY_CHOOSING + r, 1)
-        mx = 0
-        for j in range(MAX_RANKS):
-            mx = max(mx, v.nt_load_u64(_BAKERY_NUMBER + 8 * j))
-        my = mx + 1
-        v.nt_store_u64(_BAKERY_NUMBER + 8 * r, my)
-        v.nt_store_u8(_BAKERY_CHOOSING + r, 0)
-        for j in range(MAX_RANKS):
-            if j == r:
-                continue
-            while v.nt_load_u8(_BAKERY_CHOOSING + j):
-                time.sleep(0)
-            while True:
-                nj = v.nt_load_u64(_BAKERY_NUMBER + 8 * j)
-                if nj == 0 or (nj, j) > (my, r):
-                    break
-                time.sleep(0)
-
-    def _unlock(self) -> None:
-        self.view.nt_store_u64(_BAKERY_NUMBER + 8 * self.rank, 0)
 
     # ------------------------------------------------------------------
     # slots
@@ -337,7 +312,7 @@ class Arena:
             raise ValueError(f"name must be 1..{NAME_MAX} bytes")
         if size <= 0:
             raise ValueError("size must be positive")
-        self._lock()
+        self._bakery.acquire(timeout=None)
         try:
             if self._find(nb) is not None:
                 raise FileExistsError(f"object {name!r} exists")
@@ -352,7 +327,7 @@ class Arena:
             raise ArenaFullError(
                 f"all {self.n_levels} levels collide for {name!r}")
         finally:
-            self._unlock()
+            self._bakery.release()
 
     def open(self, name: str) -> ObjHandle:
         nb = name.encode()
@@ -363,7 +338,7 @@ class Arena:
         return ObjHandle(name, offset, size, so)
 
     def destroy(self, handle: ObjHandle) -> None:
-        self._lock()
+        self._bakery.acquire(timeout=None)
         try:
             hit = self._find(handle.name.encode())
             if hit is None:
@@ -373,7 +348,7 @@ class Arena:
             self._free(offset, size)
             handle.closed = True
         finally:
-            self._unlock()
+            self._bakery.release()
 
     def close(self, handle: ObjHandle) -> None:
         handle.closed = True      # local bookkeeping only (paper semantics)

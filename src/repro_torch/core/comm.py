@@ -65,8 +65,8 @@ from repro_torch.core.arena import Arena, _hash_name
 from repro_torch.core.collectives import _is_pow2
 from repro_torch.core.pool import (Registration, as_u8, copy_bytes_into,
                                    is_device, readonly)
-from repro_torch.core.progress import (CollRequest, _DEFAULT_TIMEOUT, _HeapBufs,
-                                 _ResidentBufs, _SchedExec)
+from repro_torch.core.progress import (CollRequest, _HeapBufs,
+                                       _ResidentBufs, _SchedExec)
 from repro_torch.core.pt2pt import (ANY_TAG, DEFAULT_MB_SLOTS, Communicator,
                               PoolBuffer, PoolView, Request, _RNDV_CTRL)
 from repro_torch.core.ringqueue import DEFAULT_CELL_SIZE
@@ -76,6 +76,7 @@ from repro_torch.core.trace import (SP_ALLGATHER, SP_ALLREDUCE, SP_ALLTOALL,
                                     SP_IALLREDUCE, SP_IBARRIER, SP_IBCAST,
                                     SP_IREDUCE_SCATTER, SP_REDUCE,
                                     SP_REDUCE_SCATTER)
+from repro_torch.core.wait import DEFAULT_TIMEOUT, Waitable
 
 _T = 0x7F000000          # collectives tag space (shared with collectives.py)
 _NAME_BUDGET = 24        # derived comm names are hashed beyond this length
@@ -120,7 +121,7 @@ def _traced(name: int, blocking: bool = True):
                     tr.pop_span(sp)
                 else:
                     tr.leave_span(sp)
-                    out._sp = sp
+                    out._span = sp
                 return out
             return fn(self, *a, **k)
         return call
@@ -224,7 +225,35 @@ class _RoundPool:
         self._free_sets.clear()
 
 
-class PersistentRequest:
+class _Persistent(Waitable):
+    """A persistent request reports the state of its active iteration."""
+
+    _what = "persistent request"
+
+    def _req(self) -> Waitable:
+        if self._active is None:
+            raise RuntimeError(f"{self._what} not started")
+        return self._active
+
+    @property
+    def done(self) -> bool:
+        return self._req().done
+
+    @property
+    def error(self) -> Optional[BaseException]:
+        return self._req().error
+
+    def test(self) -> bool:
+        return self._req().test()
+
+    def wait(self, timeout=DEFAULT_TIMEOUT):
+        """Complete the active iteration; returns its request's outcome.
+        The timeout defaults to that request's (a collective's: 30 s a
+        schedule round); pass ``None`` to wait forever."""
+        return self._req().wait(timeout)
+
+
+class PersistentRequest(_Persistent):
     """MPI-4-style persistent communication request.
 
     Created by ``Comm.send_init`` / ``Comm.recv_init``; ``start()``
@@ -318,15 +347,8 @@ class PersistentRequest:
         self.started += 1
         return self
 
-    def test(self) -> bool:
-        if self._active is None:
-            raise RuntimeError("persistent request not started")
-        return self._active.test()
-
-    def wait(self, timeout: float | None = 30.0) -> int:
-        if self._active is None:
-            raise RuntimeError("persistent request not started")
-        self._active.wait(timeout)
+    def wait(self, timeout=DEFAULT_TIMEOUT) -> int:
+        super().wait(timeout)
         return self._active.nbytes
 
     def cancel(self) -> None:
@@ -357,7 +379,7 @@ def startall(reqs: list) -> list:
     return reqs
 
 
-class PersistentCollRequest:
+class PersistentCollRequest(_Persistent):
     """MPI-4 persistent collective (``comm.allreduce_init(...)``,
     ``comm.bcast_init(...)``, ``comm.allgather_init(...)``).
 
@@ -403,6 +425,8 @@ class PersistentCollRequest:
     A C-contiguous numpy array is bound through ``torch.from_numpy``
     (shared memory, so the live view holds).
     """
+
+    _what = "persistent collective"
 
     def __init__(self, comm: "Comm", arr, op=torch.add,
                  algo: str = "auto", *, kind: str = "allreduce",
@@ -583,18 +607,6 @@ class PersistentCollRequest:
         self._active = CollRequest(comm, ex)
         self.started += 1
         return self
-
-    def test(self) -> bool:
-        if self._active is None:
-            raise RuntimeError("persistent collective not started")
-        return self._active.test()
-
-    def wait(self, timeout=_DEFAULT_TIMEOUT) -> torch.Tensor:
-        """Default timeout matches CollRequest: 30 s per schedule
-        round; pass ``None`` to wait forever."""
-        if self._active is None:
-            raise RuntimeError("persistent collective not started")
-        return self._active.wait(timeout)
 
     def free(self) -> None:
         """Cancel the pre-posted next-iteration receives (retracting

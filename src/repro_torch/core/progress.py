@@ -54,6 +54,7 @@ from repro_torch.core.trace import (EV_SCHED_ABORT, EV_SCHED_BEGIN,
                               EV_SCHED_DONE, EV_SCHED_END,
                               EV_SCHED_ISSUE, EV_TICK, NULL_TRACER,
                               SP_STAGER_FREE, SP_WAITALL)
+from repro_torch.core.wait import Waitable, spin
 
 __all__ = ["ProgressEngine", "CollRequest", "waitall", "waitany",
            "testall"]
@@ -568,10 +569,7 @@ class _SchedExec:
                 raise
 
 
-_DEFAULT_TIMEOUT = object()       # sentinel: scale with schedule depth
-
-
-class CollRequest:
+class CollRequest(Waitable):
     """Handle for a non-blocking collective (``comm.iallreduce`` and
     friends). ``test()`` pumps the shared progress engine; ``wait()``
     blocks until completion and returns the collective's result (the
@@ -585,7 +583,6 @@ class CollRequest:
     Pass ``timeout=None`` to wait forever."""
 
     kind = "coll"
-    _sp = -1          # a traced non-blocking call's span, open till wait
 
     def __init__(self, comm, ex: _SchedExec):
         self._comm = comm
@@ -619,26 +616,16 @@ class CollRequest:
             if not self._ex.finished:
                 return False
         tr = self._ex._tr
-        if tr.enabled and self._sp >= 0:
-            tr.close_span(self._sp)      # the result is the caller's
-            self._sp = -1
+        if tr.enabled and self._span >= 0:
+            tr.close_span(self._span)    # the result is the caller's
+            self._span = -1
         return True
 
-    def wait(self, timeout=_DEFAULT_TIMEOUT):
-        if timeout is _DEFAULT_TIMEOUT:
-            timeout = self.default_timeout
-        t0 = time.monotonic()
-        sp, n = self._sp, 0
-        while not self.test():
-            if timeout is not None and time.monotonic() - t0 > timeout:
-                raise TimeoutError(
-                    f"collective {self._ex.sched.kind} timed out")
-            time.sleep(0)
-            n += 1
-        tr = self._ex._tr
-        if tr.enabled:
-            tr.add_waits(sp, n, n + 1)
+    def _outcome(self):
         return self._ex.result
+
+    def _stuck(self) -> str:
+        return f"collective {self._ex.sched.kind} timed out"
 
 
 # --------------------------------------------------------------------------
@@ -649,37 +636,18 @@ def _tick_engines(reqs: list) -> None:
     """One tick per DISTINCT engine among the requests (mixed-comm
     request lists are legal): the engine completes every request kind
     in one sweep, so the per-request polls below never need to pump."""
-    seen: list = []
-    for r in reqs:
-        eng = getattr(getattr(r, "_comm", None), "_engine", None)
-        if eng is not None and all(eng is not e for e in seen):
-            seen.append(eng)
-            eng.tick()
+    engines = {id(r._comm._engine): r._comm._engine
+               for r in reqs if r._comm is not None}
+    for eng in engines.values():
+        eng.tick()
 
 
-def _tracer_of(reqs: list):
-    """The tracer of the first request's communicator."""
-    for r in reqs:
-        c = getattr(r, "_comm", None)
-        if c is not None:
-            return getattr(c, "tracer", NULL_TRACER)
-    return NULL_TRACER
-
-
-def _req_done(r) -> bool:
+def _req_done(r: Waitable) -> bool:
     """Non-pumping completion poll (the engines were already ticked
-    this sweep). Raises the request's recorded error, if any. Falls
-    back to ``test()`` for request types without a ``done`` state
-    (persistent requests delegate their error surfacing to it too)."""
-    err = getattr(r, "error", None)
-    if err is None:
-        err = getattr(r, "_error", None)
-    if err is not None:
-        raise err
-    done = getattr(r, "done", None)
-    if done is None:
-        return r.test()
-    return bool(done)
+    this sweep). Raises the request's recorded error, if any."""
+    if r.error is not None:
+        raise r.error
+    return r.done
 
 
 def waitall(reqs: list, timeout: float | None = 60.0) -> None:
@@ -688,26 +656,24 @@ def waitall(reqs: list, timeout: float | None = 60.0) -> None:
     still-pending request (mixed pt2pt / persistent / collective
     requests welcome) — no request starves behind an earlier one and
     no sweep re-pumps the engine per request."""
-    t0 = time.monotonic()
     pending = list(reqs)
-    tr = _tracer_of(pending)
+    tr = next((r._comm.tracer for r in pending if r._comm is not None),
+              NULL_TRACER)
     sp = -1
     if tr.enabled:
         sp = tr.push_span(SP_WAITALL)
-    n = 0
+
+    def swept() -> bool:
+        nonlocal pending
+        _tick_engines(pending)
+        pending = [r for r in pending if not _req_done(r)]
+        return not pending
+
     try:
-        while pending:
-            _tick_engines(pending)
-            pending = [r for r in pending if not _req_done(r)]
-            if pending and timeout is not None \
-                    and time.monotonic() - t0 > timeout:
-                raise TimeoutError(f"waitall: {len(pending)} pending")
-            if pending:
-                time.sleep(0)
-                n += 1
+        spin(swept, timeout, lambda: f"waitall: {len(pending)} pending",
+             tr, sp)
     finally:
         if tr.enabled:
-            tr.add_waits(sp, n, n + 1)
             tr.pop_span(sp)
 
 
@@ -717,15 +683,16 @@ def waitany(reqs: list, timeout: float | None = 60.0) -> tuple[int, Any]:
     earlier-listed laggard."""
     if not reqs:
         raise ValueError("waitany of an empty request list")
-    t0 = time.monotonic()
-    while True:
+    hit = -1
+
+    def swept() -> bool:
+        nonlocal hit
         _tick_engines(reqs)
-        for i, r in enumerate(reqs):
-            if _req_done(r):
-                return i, r
-        if timeout is not None and time.monotonic() - t0 > timeout:
-            raise TimeoutError("waitany: no request completed")
-        time.sleep(0)
+        hit = next((i for i, r in enumerate(reqs) if _req_done(r)), -1)
+        return hit >= 0
+
+    spin(swept, timeout, lambda: "waitany: no request completed")
+    return hit, reqs[hit]
 
 
 def testall(reqs: list) -> bool:

@@ -107,6 +107,7 @@ from repro_torch.core.trace import (EV_MB_CLAIM, EV_MB_CONSUME, EV_MB_POST,
                               PATH_POSTED, PATH_SELF, PATH_STAGED, SP_ACK,
                               SP_ACK_SEEN, SP_QUEUE_WAIT, SP_RECV, SP_SEND,
                               SP_STAGER, SP_WAIT, as_tracer)
+from repro_torch.core.wait import Waitable, spin
 
 ANY_TAG = -1
 
@@ -125,6 +126,20 @@ _TAG_SCHED_SEQS = 2048
 # sequence space so a long-lived allreduce_init never collides with the
 # wrapping transient windows
 _TAG_PERSIST_BASE = 0x7E800000
+
+
+def _open_poll(make, timeout: float):
+    """``make()``, retried every 0.5 ms while the arena objects it opens
+    do not exist yet (rank 0 creates them); the ``FileNotFoundError``
+    stands once ``timeout`` seconds have passed."""
+    t0 = time.monotonic()
+    while True:
+        try:
+            return make()
+        except FileNotFoundError:
+            if time.monotonic() - t0 > timeout:
+                raise
+            time.sleep(0.0005)
 
 
 def _tag_match(want: int, got: int) -> bool:
@@ -353,7 +368,7 @@ class PoolView:
 
 
 @dataclass
-class Request:
+class Request(Waitable):
     kind: str                        # send | recv
     done: bool = False
     cancelled: bool = False          # done via cancel(): no data arrived
@@ -464,18 +479,15 @@ class Request:
         if fifo and fifo[0] is self:
             fifo.popleft()
 
-    def wait(self, timeout: float | None = 30.0):
-        t0 = time.monotonic()
-        n = 0
-        while not self.test():
-            if timeout is not None and time.monotonic() - t0 > timeout:
-                raise TimeoutError(f"{self.kind} request timed out")
-            time.sleep(0)
-            n += 1
-        tr = self._comm.tracer if self._comm is not None else NULL_TRACER
-        if tr.enabled:
-            tr.add_waits(self._span, n, n + 1)
+    @property
+    def error(self) -> Optional[BaseException]:
+        return self._error
+
+    def _outcome(self):
         return self.data
+
+    def _stuck(self) -> str:
+        return f"{self.kind} request timed out"
 
 
 class Communicator:
@@ -552,19 +564,12 @@ class Communicator:
             arena.view.write_release(self._ok_obj.offset,
                                      bytes(max(64, size)))
         else:
-            t0 = time.monotonic()
-            while True:
-                try:
-                    self._ok_obj = arena.open(f"{name}:ok")
-                    self._mq_obj = arena.open(f"{name}:mq")
-                    self._bar_obj = arena.open(f"{name}:bar")
-                    if mb_bytes:
-                        self._mb_obj = arena.open(f"{name}:mb")
-                    break
-                except FileNotFoundError:
-                    if time.monotonic() - t0 > open_timeout:
-                        raise
-                    time.sleep(0.0005)
+            self._ok_obj, self._mq_obj, self._bar_obj, self._mb_obj = \
+                _open_poll(lambda: (
+                    arena.open(f"{name}:ok"), arena.open(f"{name}:mq"),
+                    arena.open(f"{name}:bar"),
+                    arena.open(f"{name}:mb") if mb_bytes else None),
+                    open_timeout)
             self.mq = QueueMatrix(arena.view, self._mq_obj.offset, size, rank,
                                   cell_size, n_cells)
             self._barrier = SeqBarrier(arena.view, self._bar_obj.offset, size,
@@ -863,13 +868,18 @@ class Communicator:
             w = v.nt_load_u64(off + _MB_CLAIM)
             if (w >> 2) != rec.post_id:
                 return
-            t0 = time.monotonic()
-            while (w & 3) == _CLAIM_PENDING:  # sender mid-claim: wait out
-                if time.monotonic() - t0 > 10.0:
-                    raise RuntimeError(
-                        "matchbox retract: peer claim stuck PENDING")
-                time.sleep(0)
-                w = v.nt_load_u64(off + _MB_CLAIM)
+            if (w & 3) == _CLAIM_PENDING:     # sender mid-claim: wait out
+
+                def settled() -> bool:
+                    nonlocal w
+                    w = v.nt_load_u64(off + _MB_CLAIM)
+                    return (w & 3) != _CLAIM_PENDING
+
+                try:
+                    spin(settled, 10.0, lambda: "matchbox retract: peer "
+                         "claim stuck PENDING")
+                except TimeoutError as e:
+                    raise RuntimeError(*e.args) from None
             if (w & 3) == _CLAIM_COMMIT:
                 n = v.nt_load_u64(off + _MB_FILL)
                 data = bytes(v.read_acquire(rec.dest.post_off, n)) \
@@ -1071,13 +1081,9 @@ class Communicator:
         v = self.arena.view
         v.nt_store_u8(self._ok_obj.offset + self.rank, 1)
         if self.rank == 0:
-            t0 = time.monotonic()
-            while any(not v.nt_load_u8(self._ok_obj.offset + r)
-                      for r in range(self.size)):
-                if time.monotonic() - t0 > 30.0:
-                    raise TimeoutError(
-                        "free(): peers never left the teardown fence")
-                time.sleep(0)
+            spin(lambda: all(v.nt_load_u8(self._ok_obj.offset + r)
+                             for r in range(self.size)), 30.0,
+                 lambda: "free(): peers never left the teardown fence")
             for h in (self._mq_obj, self._bar_obj, self._mb_obj,
                       self._ok_obj):
                 if h is None:               # matchbox may be disabled
@@ -1126,16 +1132,8 @@ class Communicator:
         progress sweep) and yield until it completes. While the tracer
         records, the yields and sweeps are counted on the request's
         span."""
-        t0 = time.monotonic()
-        n = 0
-        while not req.test():
-            if timeout is not None and time.monotonic() - t0 > timeout:
-                raise TimeoutError(f"{call}={peer}, tag={tag})")
-            time.sleep(0)
-            n += 1
-        tr = self.tracer
-        if tr.enabled:
-            tr.add_waits(req._span, n, n + 1)
+        spin(req.test, timeout, lambda: f"{call}={peer}, tag={tag})",
+             self.tracer, req._span)
 
     # numpy convenience — ndarray views end to end, no tobytes/frombuffer
     def send_array(self, dest: int, arr: np.ndarray, tag: int = 0) -> None:
@@ -1662,18 +1660,8 @@ class Communicator:
     def _collective_window(self, make):
         """Collective window creation: rank 0 creates (``make(True)``),
         the others open-poll until the objects exist, then a barrier."""
-        if self.rank == 0:
-            w = make(True)
-        else:
-            t0 = time.monotonic()
-            while True:
-                try:
-                    w = make(False)
-                    break
-                except FileNotFoundError:
-                    if time.monotonic() - t0 > 30.0:
-                        raise
-                    time.sleep(0.0005)
+        w = make(True) if self.rank == 0 else _open_poll(
+            lambda: make(False), 30.0)
         self.barrier()
         return w
 

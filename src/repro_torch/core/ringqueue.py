@@ -30,10 +30,9 @@ bypass the cell pipeline entirely via a pool-resident staging object.
 """
 from __future__ import annotations
 
-import time
-
 from repro_torch.core.coherence import CoherentView
 from repro_torch.core.pool import CACHELINE, as_u8, copy_bytes_into
+from repro_torch.core.wait import spin
 
 _T_TAIL = 0
 _T_HEAD = 64
@@ -63,6 +62,19 @@ def cell_stride(cell_size: int) -> int:
 
 def queue_bytes(cell_size: int, n_cells: int) -> int:
     return _CELLS + n_cells * cell_stride(cell_size)
+
+
+def _spin_take(poll, timeout: float | None):
+    """The first ``poll()`` that finds a cell (is not None)."""
+    got = None
+
+    def ready() -> bool:
+        nonlocal got
+        got = poll()
+        return got is not None
+
+    spin(ready, timeout, lambda: "SPSC dequeue timed out")
+    return got
 
 
 class SPSCQueue:
@@ -121,11 +133,8 @@ class SPSCQueue:
 
     def enqueue_parts(self, parts, flags: int = 0,
                       timeout: float | None = None) -> None:
-        t0 = time.monotonic()
-        while not self.try_enqueue_parts(parts, flags):
-            if timeout is not None and time.monotonic() - t0 > timeout:
-                raise TimeoutError("SPSC enqueue timed out")
-            time.sleep(0)
+        spin(lambda: self.try_enqueue_parts(parts, flags), timeout,
+             lambda: "SPSC enqueue timed out")
 
     # ---------------- consumer ----------------
     def try_dequeue(self, into=None) -> tuple[bytes, int] | None:
@@ -177,25 +186,11 @@ class SPSCQueue:
         return n, flags
 
     def dequeue(self, timeout: float | None = None) -> tuple[bytes, int]:
-        t0 = time.monotonic()
-        while True:
-            out = self.try_dequeue()
-            if out is not None:
-                return out
-            if timeout is not None and time.monotonic() - t0 > timeout:
-                raise TimeoutError("SPSC dequeue timed out")
-            time.sleep(0)
+        return _spin_take(self.try_dequeue, timeout)
 
     def dequeue_into(self, dst, timeout: float | None = None
                      ) -> tuple[int, int]:
-        t0 = time.monotonic()
-        while True:
-            out = self.try_dequeue_into(dst)
-            if out is not None:
-                return out
-            if timeout is not None and time.monotonic() - t0 > timeout:
-                raise TimeoutError("SPSC dequeue timed out")
-            time.sleep(0)
+        return _spin_take(lambda: self.try_dequeue_into(dst), timeout)
 
     # ---------------- message framing (chunked, paper §4.3) ----------------
     # first chunk payload: [total_len u64 | tag u64 | data...]

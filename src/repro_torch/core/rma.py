@@ -67,8 +67,6 @@ are the JAX package's, byte for byte.
 """
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 
@@ -85,6 +83,7 @@ from repro_torch.core.trace import (EV_RMA_FENCE_BEGIN, EV_RMA_FENCE_END,
                                     EV_RMA_NOTIFY, EV_RMA_PUT,
                                     EV_RMA_UNLOCK_ALL, EV_RMA_WAIT_BEGIN,
                                     EV_RMA_WAIT_END, NULL_TRACER)
+from repro_torch.core.wait import spin
 
 
 def _u8_tensor(buf) -> torch.Tensor:
@@ -538,21 +537,21 @@ class Window:
         tr = self._tr
         if tr.enabled:
             tr.emit(EV_RMA_WAIT_BEGIN, origin)
-        t0 = time.monotonic()
-        while True:
+        pending = 0
+
+        def arrived() -> bool:
+            nonlocal pending
             pending = self.test_notify(origin)
-            if pending >= count:
-                self._notify_seen[origin] += count
-                if tr.enabled:
-                    tr.emit(EV_RMA_WAIT_END, origin)
-                return count
-            if timeout is not None and time.monotonic() - t0 > timeout:
-                raise TimeoutError(
-                    f"wait_notify: {pending}/{count} notifications "
-                    f"from rank {origin}")
-            if self._comm is not None:
+            if pending < count and self._comm is not None:
                 self._comm._progress()
-            time.sleep(0)
+            return pending >= count
+
+        spin(arrived, timeout, lambda: f"wait_notify: {pending}/{count} "
+             f"notifications from rank {origin}")
+        self._notify_seen[origin] += count
+        if tr.enabled:
+            tr.emit(EV_RMA_WAIT_END, origin)
+        return count
 
     # ------------------------------------------------------------------
     # window collectives (RMA-based, compiled as Schedule DAGs)

@@ -20,11 +20,21 @@ incoherent (CXL-like) pool.
 """
 from __future__ import annotations
 
-import time
-
 from repro_torch.core.coherence import CoherentView
+from repro_torch.core.wait import spin
 
-_SPIN_SLEEP = 0.0
+
+def _spin_peers(peers, ready, timeout: float | None, what) -> None:
+    """Spin until ``ready(j)`` holds for each of ``peers`` in turn, under
+    one deadline; ``what(j)`` names the peer a timeout found stuck."""
+    left = list(peers)[::-1]
+
+    def all_ready() -> bool:
+        while left and ready(left[-1]):
+            left.pop()
+        return not left
+
+    spin(all_ready, timeout, lambda: what(left[-1]))
 
 
 class SeqBarrier:
@@ -48,16 +58,11 @@ class SeqBarrier:
     def wait(self, timeout: float | None = 30.0) -> None:
         self.seq += 1
         self.view.nt_store_u64(self.base + 8 * self.rank, self.seq)
-        t0 = time.monotonic()
-        for j in range(self.n):
-            if j == self.rank:
-                continue
-            while self.view.nt_load_u64(self.base + 8 * j) < self.seq:
-                if timeout is not None and time.monotonic() - t0 > timeout:
-                    raise TimeoutError(
-                        f"barrier timeout: rank {j} stuck below seq "
-                        f"{self.seq}")
-                time.sleep(_SPIN_SLEEP)
+        _spin_peers(
+            (j for j in range(self.n) if j != self.rank),
+            lambda j: self.view.nt_load_u64(self.base + 8 * j) >= self.seq,
+            timeout, lambda j: f"barrier timeout: rank {j} stuck below "
+                               f"seq {self.seq}")
 
 
 class PSCW:
@@ -98,27 +103,24 @@ class PSCW:
     def wait(self, origin_group: list[int],
              timeout: float | None = 30.0) -> None:
         """Target waits for every origin's complete, consuming the flags."""
-        t0 = time.monotonic()
-        for o in origin_group:
-            off = self._comp_off(self.rank, o)
-            while self.view.read_acquire(off, 1) != b"\x01":
-                if timeout is not None and time.monotonic() - t0 > timeout:
-                    raise TimeoutError(f"PSCW wait: origin {o}")
-                time.sleep(_SPIN_SLEEP)
-            self.view.write_release(off, b"\x00")
+        _spin_peers(origin_group,
+                    lambda o: self._consume(self._comp_off(self.rank, o)),
+                    timeout, lambda o: f"PSCW wait: origin {o}")
 
     # -- origin side --------------------------------------------------
     def start(self, target_group: list[int],
               timeout: float | None = 30.0) -> None:
         """Origin waits for each target's post, consuming the flags."""
-        t0 = time.monotonic()
-        for t in target_group:
-            off = self._post_off(self.rank, t)
-            while self.view.read_acquire(off, 1) != b"\x01":
-                if timeout is not None and time.monotonic() - t0 > timeout:
-                    raise TimeoutError(f"PSCW start: target {t}")
-                time.sleep(_SPIN_SLEEP)
-            self.view.write_release(off, b"\x00")
+        _spin_peers(target_group,
+                    lambda t: self._consume(self._post_off(self.rank, t)),
+                    timeout, lambda t: f"PSCW start: target {t}")
+
+    def _consume(self, off: int) -> bool:
+        """Clear the flag at ``off`` if it is raised; whether it was."""
+        if self.view.read_acquire(off, 1) != b"\x01":
+            return False
+        self.view.write_release(off, b"\x00")
+        return True
 
     def complete(self, target_group: list[int]) -> None:
         for t in target_group:
@@ -143,29 +145,36 @@ class BakeryLock:
         return ((n_ranks + 63) // 64) * 64 + 8 * n_ranks
 
     def acquire(self, timeout: float | None = 30.0) -> None:
-        v, r = self.view, self.rank
-        v.nt_store_u8(self.base + r, 1)
+        v, r, n, base, num = (self.view, self.rank, self.n, self.base,
+                              self._num_off)
+        v.nt_store_u8(base + r, 1)
         mx = 0
-        for j in range(self.n):
-            mx = max(mx, v.nt_load_u64(self._num_off + 8 * j))
+        for j in range(n):
+            mx = max(mx, v.nt_load_u64(num + 8 * j))
         my = mx + 1
-        v.nt_store_u64(self._num_off + 8 * r, my)
-        v.nt_store_u8(self.base + r, 0)
-        t0 = time.monotonic()
-        for j in range(self.n):
-            if j == r:
-                continue
-            while v.nt_load_u8(self.base + j):
-                if timeout is not None and time.monotonic() - t0 > timeout:
-                    raise TimeoutError("bakery: choosing stuck")
-                time.sleep(_SPIN_SLEEP)
-            while True:
-                nj = v.nt_load_u64(self._num_off + 8 * j)
-                if nj == 0 or (nj, j) > (my, r):
-                    break
-                if timeout is not None and time.monotonic() - t0 > timeout:
-                    raise TimeoutError("bakery: ticket stuck")
-                time.sleep(_SPIN_SLEEP)
+        v.nt_store_u64(num + 8 * r, my)
+        v.nt_store_u8(base + r, 0)
+        # each other rank in turn: wait out its choosing flag, then its
+        # smaller ticket, in one closure (the arena's create and destroy
+        # take this lock)
+        j, ticket = 0, False         # ticket: j's choosing flag seen down
+
+        def ours() -> bool:
+            nonlocal j, ticket
+            for j in range(j, n):
+                if j == r:
+                    continue
+                if not ticket and v.nt_load_u8(base + j):
+                    return False
+                ticket = True
+                nj = v.nt_load_u64(num + 8 * j)
+                if nj and (nj, j) < (my, r):
+                    return False
+                ticket = False
+            return True
+
+        spin(ours, timeout, lambda: "bakery: ticket stuck" if ticket
+             else "bakery: choosing stuck")
 
     def release(self) -> None:
         self.view.nt_store_u64(self._num_off + 8 * self.rank, 0)
@@ -219,15 +228,15 @@ class RWLock:
 
     def acquire_excl(self, timeout: float | None = 30.0) -> None:
         self.bakery.acquire(timeout=timeout)
-        t0 = time.monotonic()
-        for j in range(self.n):
-            if j == self.rank:
-                continue
-            while self.view.read_acquire(self._rd_off + j, 1) != b"\x00":
-                if timeout is not None and time.monotonic() - t0 > timeout:
-                    self.bakery.release()
-                    raise TimeoutError("RWLock: reader stuck")
-                time.sleep(_SPIN_SLEEP)
+        try:
+            _spin_peers(
+                (j for j in range(self.n) if j != self.rank),
+                lambda j: self.view.read_acquire(self._rd_off + j, 1)
+                == b"\x00",
+                timeout, lambda j: "RWLock: reader stuck")
+        except TimeoutError:
+            self.bakery.release()
+            raise
 
     def release_excl(self) -> None:
         self.bakery.release()

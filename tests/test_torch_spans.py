@@ -289,13 +289,14 @@ SPAN_SRC = ("def f(self, n):\n"
 
 
 @pytest.mark.parametrize("fname", ["comm.py", "coherence.py", "pool.py",
-                                   "pt2pt.py", "progress.py", "rma.py"])
+                                   "pt2pt.py", "progress.py", "rma.py",
+                                   "wait.py"])
 def test_lp005_holds_span_and_sync_sites_to_the_guard(fname):
     found = [(f.rule, f.line) for f in
              lint.lint_sources({f"x/{fname}": SPAN_SRC})]
     spans = [("LP005", 3), ("LP005", 6), ("LP005", 7)]
     want = {"comm.py": spans, "coherence.py": spans, "pool.py": spans,
-            "pt2pt.py": spans + [("LP005", 8)],
+            "wait.py": spans, "pt2pt.py": spans + [("LP005", 8)],
             "progress.py": spans + [("LP005", 8)], "rma.py": []}[fname]
     assert found == want
 
