@@ -514,9 +514,15 @@ def main_path(env) -> dict:
     xs = [torch.randn(n, device=c.device, generator=torch.Generator(
         device=c.device).manual_seed(1000 + r)) for r in range(2)]
     want = xs[0] + xs[1]
+    st = env.arena.view.stats
+    s0 = st.snapshot()
     got = c.allreduce(xs[rank].clone())
     res["allreduce_ok"] = bool(got.device == want.device
                                and torch.equal(got, want))
+    # a 2-rank sum above the eager threshold: the direct sum, whose read
+    # of the peer's operand is counted on the ``coll_direct`` path
+    res["allreduce_direct_bytes"] = st.delta(s0)["path_copied_bytes"].get(
+        "coll_direct", 0)
     # persistent allreduce: every rendezvous send hits a pre-posted entry
     x = torch.zeros(PERSIST_BYTES // 8, dtype=torch.float64,
                     device=c.device)
@@ -3695,7 +3701,11 @@ def check_main(ranks: list[dict], main_s: float) -> tuple:
             "MBps": size / fwd[0]["s"] / 1e6}
     if not all(r["allreduce_ok"] for r in ranks):
         fail("8 MiB allreduce differs from the sum on the card")
-    say("[main] allreduce of 8 MiB float32 equals the sum on the card")
+    direct = [r["allreduce_direct_bytes"] for r in ranks]
+    if direct != [ALLREDUCE_BYTES] * len(ranks):
+        fail(f"8 MiB allreduce: {direct} B read by the direct sum")
+    say("[main] allreduce of 8 MiB float32 equals the sum on the card "
+        "(the direct sum on every rank)")
     hits = sum(r["persistent"]["hits"] for r in ranks)
     rndv = sum(r["persistent"]["rndv"] for r in ranks)
     rate = hits / max(rndv, 1)

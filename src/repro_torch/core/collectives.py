@@ -31,16 +31,20 @@ Algorithms (n = comm size):
   bcast           binomial tree
   reduce          binomial tree (op applied bottom-up)
   allreduce       recursive doubling (pow2) | fused ring RS+AG (any n)
+                  | a direct sum (2 ranks, pool-resident sums)
   allgather       Bruck | ring
   reduce_scatter  ring
   alltoall        pairwise exchange
 """
 from __future__ import annotations
 
+import struct
+
 import numpy as np
 import torch
 
-from repro_torch.core.pool import as_tensor, as_u8, copy_bytes_into, nbytes
+from repro_torch.core.pool import (as_tensor, as_u8, copy_bytes_into,
+                                   device_sync, is_device, nbytes)
 from repro_torch.core.progress import (CollRequest, _HeapBufs, _ResidentBufs,
                                  _SchedExec)
 from repro_torch.core.pt2pt import Communicator
@@ -214,6 +218,76 @@ def icoll_allreduce(comm: Communicator, arr, op=torch.add,
     bufs = _make_bufs(comm, sched, resident, arr.device)
     bufs.fill(0, arr, pad_to=sched.slot_sizes[0])
     return _launch(comm, sched, bufs, dtype, op, fin)
+
+
+def allreduce_pair(comm: Communicator, arr: torch.Tensor,
+                   piece: int) -> torch.Tensor:
+    """The sum of a 2-rank communicator's operands on the pool-resident
+    path, in pieces of ``piece`` elements. A rank leases one slot of the
+    round pool, two where there are more pieces, and fills the pieces
+    into them in turn (a copy, then a stream sync). One message each way
+    a piece says "my piece k is in my slot" and so also "I have read
+    your piece k-1", which frees that slot for piece k+1; the first
+    carries the slots' size and pool offsets. A rank then reads the
+    peer's piece straight from the pool and adds it to its own into its
+    slice of the result, rank 0's operand first on both ranks: two
+    operands' IEEE sum is the same in either order, so the bits are the
+    ring's. A last zero-byte message each way says the last piece was
+    read, and the slots go back to the round pool (not at all where a
+    piece fails, as a failed schedule's set does not). ``ProtocolStats``
+    counts each read, the piece's one transfer, on the ``coll_direct``
+    path; a recording tracer counts the pieces in ``allreduce_direct``."""
+    flat = arr.detach().reshape(-1)
+    out = torch.empty_like(flat)
+    peer, tr = 1 - comm.rank, comm.tracer
+    pool, view = comm.arena.pool, comm.arena.view
+    starts = range(0, flat.numel(), piece)
+    cap = min(piece, flat.numel()) * flat.element_size()
+    bufs, release = comm._lease_round_bufs(
+        {s: cap for s in range(min(2, len(starts)))})
+    mine = [bufs[s].offset for s in range(len(bufs))]
+    form = f"<{1 + len(mine)}q"
+    got = bytearray(struct.calcsize(form))
+
+    def trade(msg: bytes) -> None:
+        tag = comm._alloc_coll_tags()
+        req = comm.isend(peer, msg, tag=tag, _internal=True)
+        comm.recv_into(peer, got, tag=tag, _internal=True)
+        req.wait()
+
+    for k, a in enumerate(starts):
+        part = flat[a:a + piece]
+        n = nbytes(part)
+        # the slot's piece before was read: the peer's last message said
+        # so; the copy is synced before this rank's message goes
+        copy_bytes_into(as_u8(pool.tensor_view(  # lint: raw-ok (own slot)
+            mine[k % 2], n, flat.device)), as_u8(part), tr)
+        if k:
+            trade(b"")
+        else:
+            trade(struct.pack(form, cap, *mine))
+            size, *theirs = struct.unpack(form, got)
+            if size != cap or not all(0 <= o <= pool.size - cap
+                                      for o in theirs):
+                raise RuntimeError(
+                    f"allreduce: the peer's slots ({size} B at {theirs}) "
+                    f"do not match this rank's {cap} B in a {pool.size} B "
+                    f"pool")
+        # the peer's piece k, filled and synced before its message, and
+        # not refilled before this rank's next one
+        other = pool.tensor_view(  # lint: raw-ok (peer's slot, read)
+            theirs[k % 2], n, flat.device).view(flat.dtype)
+        torch.add(*((part, other) if comm.rank == 0 else (other, part)),
+                  out=out[a:a + piece])
+        if is_device(part):
+            device_sync(tr)
+        view.count_copy(n)
+        view.count_path("coll_direct", n)
+        if tr.enabled:
+            tr.allreduce_direct += 1
+    trade(b"")
+    release()
+    return out.reshape(arr.shape)
 
 
 def icoll_allreduce_hier(comm: Communicator, arr, op=torch.add,

@@ -66,7 +66,7 @@ from repro_torch.core.collectives import _is_pow2
 from repro_torch.core.pool import (Registration, as_u8, copy_bytes_into,
                                    is_device, readonly)
 from repro_torch.core.progress import (CollRequest, _HeapBufs,
-                                       _ResidentBufs, _SchedExec)
+                                       _ResidentBufs, _SchedExec, torch_op)
 from repro_torch.core.pt2pt import (ANY_TAG, DEFAULT_MB_SLOTS, Communicator,
                               PoolBuffer, PoolView, Request, _RNDV_CTRL)
 from repro_torch.core.ringqueue import DEFAULT_CELL_SIZE
@@ -1161,6 +1161,18 @@ class Comm(Communicator):
             return None
         return max(1, self.lease_cap // arr.element_size())
 
+    def _direct_sum(self, arr: torch.Tensor, op) -> bool:
+        """Whether a blocking ``allreduce`` of ``arr`` takes the direct
+        two-rank sum (``collectives.allreduce_pair``): a sum over 2 ranks
+        of a pool that can hold its operands, above the rank-agreed eager
+        threshold (``_chunk_probe_base``, one small collective at the
+        first such call). Both ranks must choose alike, and a rank's own
+        ``eager_threshold`` may differ from its peer's (probed, read from
+        a profile or set at run time), so it is not read here."""
+        return (self.size == 2 and torch_op(op) is torch.add
+                and self._resident
+                and _coll.nbytes(arr) > self._chunk_probe_base())
+
     # ------------------------------------------------------------------
     # method collectives: blocking = i*(...).wait() over the SAME
     # compiled schedules (core/sched.py) the non-blocking forms use
@@ -1212,15 +1224,21 @@ class Comm(Communicator):
     def allreduce(self, arr, op=torch.add, algo: str = "auto",
                   group_size: int | None = None,
                   chunk_bytes=None) -> torch.Tensor:
-        """allreduce with automatic algorithm selection: recursive
-        doubling (small, pow2 sizes), the fused hierarchical schedule
-        (large payloads on hier-shaped sizes), fused ring reduce-scatter
-        + allgather otherwise. ``group_size`` applies to ``algo="hier"``;
-        ``chunk_bytes`` (int or "auto") pipelines large payloads at
-        chunk granularity."""
+        """allreduce with automatic algorithm selection: the direct sum
+        (2 ranks, sums above the agreed eager threshold: ``_direct_sum``),
+        recursive doubling (small, pow2 sizes), the fused hierarchical
+        schedule (large payloads on hier-shaped sizes), fused ring
+        reduce-scatter + allgather otherwise. ``group_size`` applies to
+        ``algo="hier"``; ``chunk_bytes`` (int or "auto") pipelines large
+        payloads at chunk granularity. An explicit ``algo``,
+        ``group_size`` or ``chunk_bytes`` runs the schedule it names."""
         arr = _coll.as_tensor(arr)
         if self.size == 1:
             return arr.clone()
+        if (algo == "auto" and group_size is None and chunk_bytes is None
+                and self._direct_sum(arr, op)):
+            return _coll.allreduce_pair(
+                self, arr, max(1, self.lease_cap // arr.element_size()))
         piece = self._piece_elems(arr, _coll.nbytes(arr))
         if piece is not None:
             flat = arr.reshape(-1)

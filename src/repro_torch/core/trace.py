@@ -364,6 +364,7 @@ class Tracer:
         self.arena_frees = 0            # the arena's frees ...
         self.arena_merged = 0           # ... those that coalesced
         self.freelist_peak = 0          # the longest free list seen
+        self.allreduce_direct = 0       # pieces summed by allreduce_pair
         self._seq_out: dict[int, int] = {}    # (comm, dst) -> next seq
         self._seq_in: dict[int, int] = {}     # (comm, src) -> next seq
         self._call_seq: dict[int, int] = {}   # comm -> next call seq
@@ -639,7 +640,8 @@ class Tracer:
                 "sync_calls": self.sync_calls, "sync_ns": self.sync_ns,
                 "arena_frees": self.arena_frees,
                 "arena_merged": self.arena_merged,
-                "freelist_peak": self.freelist_peak}
+                "freelist_peak": self.freelist_peak,
+                "allreduce_direct": self.allreduce_direct}
 
     def intern(self, s: str) -> int:
         """Map a string (schedule kind, lane label) to a small id so
@@ -689,6 +691,7 @@ class Tracer:
         self.arena_frees = 0
         self.arena_merged = 0
         self.freelist_peak = 0
+        self.allreduce_direct = 0
         self._seq_out.clear()
         self._seq_in.clear()
         self._call_seq.clear()

@@ -211,6 +211,155 @@ def test_allreduce_matches_reference(n, algo, dtype):
     assert len(set(port)) == 1               # every rank holds the result
 
 
+# the direct two-rank sum (``collectives.allreduce_pair``): its cases
+# run the port on a 2 MiB pool, whose lease cap (128 KiB) cuts the
+# largest payload into 4 pieces, and the reference on a pool that takes
+# every payload whole
+SMALL_POOL = 2 << 20
+EAGER = 4096                                 # run_threads' cell size
+
+
+def _operand(rank: int, dtype: str, count: int, pkg):
+    """A rank's operand: f64 or f32 normals, or f32 normals rounded to
+    bf16 (the reference adds their f32 values)."""
+    x = _x(rank, count, np.float64 if dtype == "f64" else np.float32)
+    if dtype != "bf16":
+        return pkg.arr(x)
+    b = torch.from_numpy(x).to(torch.bfloat16)
+    return b if pkg is Port else b.float().numpy()
+
+
+def _direct_prog(env, pkg, *, dtype, count):
+    c = env.comm
+    x = _operand(env.rank, dtype, count, pkg)
+    if pkg is Ref:
+        return np.asarray(c.allreduce(x)).tobytes()
+    st = env.arena.view.stats
+    c.tracer.start()
+    s0 = st.snapshot()
+    auto = c.allreduce(x)
+    moved = st.delta(s0)["path_copied_bytes"].get("coll_direct", 0)
+    pieces = c.tracer.allreduce_direct
+    ring = c.allreduce(x, algo="ring")
+    return (auto.view(torch.uint8).numpy().tobytes(),
+            ring.view(torch.uint8).numpy().tobytes(), pieces, moved)
+
+
+@pytest.mark.parametrize("size", ["at_threshold", "above_threshold",
+                                  "pieces"])
+@pytest.mark.parametrize("dtype", ["f64", "f32", "bf16"])
+def test_two_rank_sum_is_the_rings_and_the_references(dtype, size):
+    """A 2-rank ``auto`` allreduce is bitwise the reference's and the
+    port's ``algo="ring"``: at the eager threshold (the ring's eager
+    path), one element above it (the direct sum, whole) and above the
+    lease cap (the direct sum in pieces, the last one ragged). Where the
+    direct sum runs, ``allreduce_direct`` counts its pieces and the
+    ``coll_direct`` path its bytes, once each."""
+    item = 8 if dtype == "f64" else 4 if dtype == "f32" else 2
+    cap = SMALL_POOL // 16
+    count = {"at_threshold": EAGER // item,
+             "above_threshold": EAGER // item + 1,
+             "pieces": (3 * cap + 1000) // item + 7}[size]
+    prog = functools.partial(_direct_prog, dtype=dtype, count=count)
+    ref = run(Ref, 2, prog, pool_bytes=32 << 20)
+    port = run(Port, 2, prog, pool_bytes=SMALL_POOL)
+    want = ref[0]
+    if dtype == "bf16":                  # the f32 sum, rounded to bf16
+        want = torch.from_numpy(np.frombuffer(want, np.float32).copy()) \
+            .to(torch.bfloat16).view(torch.uint8).numpy().tobytes()
+    nbytes = count * item
+    direct = nbytes > EAGER
+    for auto, ring, pieces, moved in port:
+        assert auto == ring == want
+        assert pieces == (-(-nbytes // cap) if direct else 0)
+        assert moved == (nbytes if direct else 0)
+    assert ref[0] == ref[1]
+
+
+def _back_to_back(env, pkg, *, rounds=50):
+    """Allreduces of two sizes in turn, one above the lease cap; each
+    round's sum is exact (integers), so a slot refilled while the peer
+    still read it would show."""
+    c, out = env.comm, []
+    c.tracer.start()
+    for i in range(rounds):
+        m = 70_001 if i % 2 else 5_000
+        x = torch.arange(m, dtype=torch.float32) % 251 + env.rank + i
+        got = c.allreduce(x)
+        out.append(torch.equal(
+            got, 2 * (torch.arange(m, dtype=torch.float32) % 251) + 2 * i + 1))
+    return out, c.tracer.allreduce_direct
+
+
+def test_two_rank_sums_back_to_back_stay_exact():
+    res = run(Port, 2, _back_to_back, pool_bytes=SMALL_POOL)
+    for ok, pieces in res:
+        assert all(ok)
+        assert pieces == 25 * 1 + 25 * 3     # 70,001 f32: 3 pieces of 128 KiB
+
+
+OPS = {"np.add": (np.add, np.add), "torch.add": (np.add, torch.add),
+       "maximum": (np.maximum, torch.maximum)}   # (reference's, port's)
+
+
+def _engaged(env, pkg, *, op, algo, count):
+    c, x = env.comm, _x(env.rank, count)
+    if pkg is Ref:
+        return np.asarray(c.allreduce(x, op=OPS[op][0], algo=algo)).tobytes()
+    c.tracer.start()
+    st = env.arena.view.stats
+    s0 = st.snapshot()
+    got = c.allreduce(torch.from_numpy(x), op=OPS[op][1], algo=algo)
+    return (got.numpy().tobytes(), c.tracer.allreduce_direct,
+            st.delta(s0)["path_copied_bytes"].get("coll_direct", 0))
+
+
+@pytest.mark.parametrize("n,op,algo,count,engaged", [
+    (2, "np.add", "auto", 3000, True),
+    (2, "torch.add", "auto", 3000, True),
+    (3, "torch.add", "auto", 3000, False),
+    (2, "maximum", "auto", 3000, False),
+    (2, "torch.add", "auto", EAGER // 8, False),
+    (2, "torch.add", "ring", 3000, False),
+    (2, "torch.add", "rd", 3000, False)],
+    ids=["np.add", "torch.add", "3_ranks", "maximum", "eager", "ring", "rd"])
+def test_two_rank_sum_engages_only_for_pool_resident_sums(n, op, algo, count,
+                                                           engaged):
+    """The direct sum takes 2-rank sums above the eager threshold under
+    ``auto`` alone: 3 ranks, a max, an eager payload and an explicit
+    schedule run as before; every result is the reference's."""
+    ref, port = both(n, functools.partial(_engaged, op=op, algo=algo,
+                                          count=count))
+    for want, (got, pieces, moved) in zip(ref, port):
+        assert got == want
+        assert (pieces, moved) == ((1, 8 * count) if engaged else (0, 0))
+
+
+def _uneven_thresholds(env, pkg, *, first):
+    """Each rank's own eager threshold set at run time, one above and
+    one below the payload, before or after a first sum: the ranks still
+    choose alike, since the direct sum reads the agreed threshold."""
+    c, x = env.comm, _x(env.rank)
+    if pkg is Port:
+        x = torch.from_numpy(x)
+        c.tracer.start()
+    out = [c.allreduce(x)] if first else []
+    c.eager_threshold = 1 << 40 if env.rank == 0 else 0
+    out += [c.allreduce(x), c.allreduce(x)]
+    sums = b"".join(np.asarray(o).tobytes() for o in out)
+    return sums if pkg is Ref else (sums, c.tracer.allreduce_direct)
+
+
+@pytest.mark.parametrize("first", [True, False],
+                         ids=["after_a_sum", "before_any_sum"])
+def test_two_rank_sum_choice_ignores_per_rank_thresholds(first):
+    ref, port = both(2, functools.partial(_uneven_thresholds, first=first))
+    pieces = {p for _, p in port}
+    assert all(got == want for (got, _), want in zip(port, ref))
+    # the agreed threshold is the ranks' largest at the first sum
+    assert pieces == ({3} if first else {0})
+
+
 def _collectives(env, pkg):
     c, r = env.comm, env.rank
     out = {}

@@ -267,3 +267,30 @@ def test_mamba_layers_count_their_kernel_scans(card):
     assert ss.LAUNCHES == before + 4
     assert tr.metrics.counters["mamba_scan_kernel"] == 3
     assert tr.metrics.counters["mamba_scan_chunks"] == 3 * 2
+
+
+def _two_rank_sums(env):
+    """A Jamba-shaped pair of pieces (f32) and the embedding's bf16 sum,
+    through ``auto`` and the ring: their bits, and the pieces counted."""
+    c, out = env.comm, []
+    c.tracer.start()
+    g = torch.Generator(device="cuda").manual_seed(30 + env.rank)
+    for dtype, n in ((torch.float32, 3 * (c.lease_cap // 4) + 5),
+                     (torch.bfloat16, 1 << 20)):
+        x = torch.randn(n, generator=g, device="cuda").to(dtype)
+        auto, ring = c.allreduce(x), c.allreduce(x, algo="ring")
+        out.append(torch.equal(auto.view(torch.uint8),
+                               ring.view(torch.uint8)))
+    return out, c.tracer.allreduce_direct
+
+
+def test_two_rank_sum_on_the_card(card):
+    """The direct sum of two ranks on the card (threads of one process
+    over a mapped pool), the peer's operand read from the pool's mapped
+    window: bitwise the ring's, f32 in 4 pieces (the last ragged) and
+    bf16 whole."""
+    from repro_torch.core import run_threads
+    res = run_threads(2, _two_rank_sums, pool_bytes=64 << 20,
+                      device="cuda", timeout=120)
+    for ok, pieces in res:
+        assert all(ok) and pieces == 4 + 1

@@ -5,7 +5,9 @@ context manager ``recording()`` runs a cell's ranks through
 ``traced_rank_main`` instead, which, in a traced run only, turns each
 rank's tracer on in the benchmark's ``Window.open`` and off in its
 ``close``. The rank's report then holds ``program_spans`` (rows of
-``FIELDS``) and ``program_counters``, on the window's reading of the
+``FIELDS``) and ``program_counters`` (the tracer's ``span_counters``;
+kept as ``span_counters`` too, since the hybrid serve loop puts counters
+of its own in ``program_counters``), on the window's reading of the
 epoch clock, and the rank's ``spans`` gain the program's spans as
 innermost segments, so that the harness labels the card's idle gaps by
 the program's work. A message's spans carry its id ``(comm, src, dst,
@@ -84,7 +86,8 @@ def _patch_window() -> None:
         shift = self.t0_ns - round(self.t0 * 1e9) - tr.epoch_offset_ns
         rows = rebase(tr.span_rows(), shift)
         self.rep.update(program_spans=rows, program_clock_shift_ns=shift,
-                        program_counters=tr.span_counters())
+                        program_counters=tr.span_counters(),
+                        span_counters=tr.span_counters())
         self.spans.items += innermost(rows)
 
     Window.open, Window.close = opened, closed

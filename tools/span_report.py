@@ -205,7 +205,9 @@ def report(cell: str, seed: int, seconds: float, root: Path,
             "device": out["device"], "hop": hop(run),
             "labels": labels(run), "round_trip": round_trip(run),
             "clock": clock_check(run),
-            "counters": [r.get("program_counters") for r in run["reports"]],
+            "counters": [{**(r.get("span_counters") or {}),
+                          **(r.get("program_counters") or {})}
+                         for r in run["reports"]],
             "host_time_rank0": host_time(run)}
 
 
