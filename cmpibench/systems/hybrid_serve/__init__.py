@@ -10,6 +10,9 @@ decode), and the greedy first token; for a decode mix, ``gen`` greedy
 steps of ``make_serve_decode`` through that state. Requests follow one
 another in a closed loop; after each, the ranks agree whether the
 window has ended. The rank program is ``serve`` (the mixes' ``"loop"``).
+``serve`` takes the model from this package: ``model_config``,
+``program_params``, and the program's spans and counters that a traced
+window copies (``SPANS``, ``COUNTERS``).
 
 The check runs the plain reference (``cmpibench.reference.jamba``) in
 this process once the ranks have ended, on a sample of the requests
@@ -27,6 +30,11 @@ import numpy as np
 from cmpibench import generate
 from cmpibench.reference.jamba import layer_kinds
 from cmpibench.systems.ep_serve import CONTROL
+
+# the program's spans and counters a traced window copies: a Mamba layer
+# and its scan, each write of the decode state in a prefill
+SPANS = ("mamba.mixer", "mamba.scan", "serve.state_fill")
+COUNTERS = ("mamba_scan_chunks", "state_fill_bytes")
 
 # what the program computes of the published configuration
 FIXED = {"hidden_act": "silu", "tie_word_embeddings": False,

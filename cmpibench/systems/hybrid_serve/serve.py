@@ -6,12 +6,18 @@ that many greedy steps of ``make_serve_decode`` through that state, the
 tokens allgathered over ``data`` between steps. After each request the
 ranks agree whether the window has ended.
 
+The model comes from the configuration's system package
+(``systems/<system>/__init__.py``): its ``model_config``,
+``program_params``, ``SPANS`` and ``COUNTERS``. Another hybrid system is
+its own package and a ``serve.py`` that re-exports ``rank_main`` beside
+its own ``check``.
+
 In a traced run the program's tracer records for the window, and its
-spans ``mamba.mixer``, ``mamba.scan`` and ``serve.state_fill`` join the
-window's spans on the epoch clock, with the counters
-``mamba_scan_chunks`` and ``state_fill_bytes`` in the report."""
+spans that the system names in ``SPANS`` join the window's spans on the
+epoch clock, with its counters of ``COUNTERS`` in the report."""
 from __future__ import annotations
 
+import importlib
 import time
 
 import numpy as np
@@ -20,14 +26,10 @@ import torch
 from cmpibench import generate
 from cmpibench.systems import Window
 from cmpibench.systems.ep_serve import digest
-from cmpibench.systems.hybrid_serve import (check, model_config,
-                                            program_params)
+from cmpibench.systems.hybrid_serve import check
 from cmpibench.tracing import wrap_collectives
 
 __all__ = ["rank_main", "check"]
-
-SPANS = ("mamba.mixer", "mamba.scan", "serve.state_fill")
-COUNTERS = ("mamba_scan_chunks", "state_fill_bytes")
 
 
 def rank_main(env, spec: dict) -> dict:
@@ -38,12 +40,13 @@ def rank_main(env, spec: dict) -> dict:
 
     conf, t, seed = spec["config"], spec["traffic"], spec["seed"]
     fault = spec.get("fault")
-    cfg = model_config(conf)
+    system = importlib.import_module(f"cmpibench.systems.{conf['system']}")
+    cfg = system.model_config(conf)
     dev = env.comm.device
     mesh = conf["mesh"]
     dist = DistContext(env.comm, tuple(mesh.values()), tuple(mesh))
-    params = program_params(conf, seed, dev, dist.axis_index("model"),
-                            dist.model_size)
+    params = system.program_params(conf, seed, dev,
+                                   dist.axis_index("model"), dist.model_size)
     P, G, R = t["prompt_len"], t["gen"], t["rows"]
     b_loc = R // dist.dp_size
     pre = ST.make_serve_prefill(cfg, InputShape("p", "prefill", P, R), dist)
@@ -113,7 +116,7 @@ def rank_main(env, spec: dict) -> dict:
     w.close()
     if w.trace:
         tr.stop()
-        _program_spans(w, tr, c0)
+        _program_spans(w, tr, c0, system.SPANS, system.COUNTERS)
     leader = dist.axis_index("model") == 0
     if not leader:                            # its row's leader sends them
         for o in outputs:
@@ -124,16 +127,16 @@ def rank_main(env, spec: dict) -> dict:
     return w.rep
 
 
-def _program_spans(w, tr, c0: dict) -> None:
-    """The program's spans of ``SPANS`` into the window's, on the epoch
-    clock, and the window's counts of ``COUNTERS``."""
+def _program_spans(w, tr, c0: dict, spans, counters) -> None:
+    """The program's spans named in ``spans`` into the window's, on the
+    epoch clock, and the window's counts of ``counters``."""
     for row in tr.span_rows():
         name, t0, t1 = row[0], row[1], row[2]
-        if name in SPANS and t1:
+        if name in spans and t1:
             w.spans.add(name, t0, t1)
     got = tr.metrics.counters
     w.rep["program_counters"] = {k: got.get(k, 0) - c0.get(k, 0)
-                                 for k in COUNTERS}
+                                 for k in counters}
 
 
 def _span(w, name: str, a: float, b: float) -> None:

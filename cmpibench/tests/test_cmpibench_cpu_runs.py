@@ -10,7 +10,7 @@ import time
 import pytest
 
 from cmpibench import harness, launcher
-from cmpibench.tests.cpu_cells import make_root
+from cmpibench.tests.tiny_cells import make_root
 
 SEED = 2 ** 31 + 77
 

@@ -11,7 +11,7 @@ from pathlib import Path
 import pytest
 
 from cmpibench import harness
-from cmpibench.tests.cpu_cells import make_root
+from cmpibench.tests.tiny_cells import make_root
 
 ROOT = Path(__file__).resolve().parents[2]
 BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
